@@ -1,0 +1,4 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version (``triage``, ``calibrate``), the padding/device wrappers
+(``ops``), the bucket table (``buckets``) and the nvcc build
+(``runtime``)."""
