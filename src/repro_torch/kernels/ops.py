@@ -1,4 +1,4 @@
-"""Public wrappers for the fleet kernels: padding, dtype and device.
+"""Public wrappers for the port's kernels: padding, dtype and device.
 
 Every wrapper takes a ``device``: ``"cuda"`` (the default) launches the
 hand-written kernel on the card, ``"cpu"`` runs the kernel's plain
@@ -10,9 +10,10 @@ The bucket padding and pad sentinels are the reference's
 (``kernels/buckets.py``): both trailing axes pad to power-of-two buckets
 (min 8) and the query axis to ``bucket_q``; pad lanes carry conf/score
 -1.0 (always 'reject', never a slot; masked out of every fit), pad triage
-rows carry thresholds (1, 0), pad calibration rows truths 0.  The pads
-are sliced back off before returning, so padding is invisible to callers
-exactly as in the reference.
+rows carry thresholds (1, 0), pad calibration rows truths 0, pad crop
+rows token 0.  The pads are sliced back off before returning, so padding
+is invisible to callers exactly as in the reference.  The pixel kernels
+take the true frame size and need no padding.
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import buckets as _bk
 from repro_torch.kernels import calibrate as _ca
+from repro_torch.kernels import framediff as _fd
+from repro_torch.kernels import morphology as _mo
+from repro_torch.kernels import pixel_cascade as _pc
 from repro_torch.kernels import triage as _tr
 from repro_torch.kernels.runtime import resolve_device
 
@@ -137,3 +141,68 @@ def calibrate_fleet(scores, truths, *, iters: int = 8, min_count: int = 8,
         scores.to(dev).contiguous(), truths.to(dev).contiguous(),
         iters=iters, min_count=min_count)
     return params[:E], counts[:E]
+
+
+def _int32_on(x, dev: torch.device) -> torch.Tensor:
+    """``x`` as a contiguous int32 tensor on ``dev``; a narrower input
+    (uint8 frames) crosses to the device before it widens."""
+    return torch.as_tensor(x).to(dev).to(torch.int32).contiguous()
+
+
+def framediff(f0, f1, f2, *, threshold: int = 40, maxval: int = 255,
+              device="cuda") -> torch.Tensor:
+    """Binary motion mask from 3 consecutive (B, H, W, 3) frames with
+    values in [0, 255] -> (B, H, W) int32 in {0, maxval}."""
+    dev = resolve_device(device)
+    return _fd.framediff(*(_int32_on(f, dev) for f in (f0, f1, f2)),
+                         threshold=threshold, maxval=maxval)
+
+
+def dilate3x3(x, *, device="cuda") -> torch.Tensor:
+    """(B, H, W) -> (B, H, W) int32 3x3 max, zero outside the image."""
+    return _mo.dilate3x3(_int32_on(x, resolve_device(device)))
+
+
+def erode3x3(x, maxval: int = 255, *, device="cuda") -> torch.Tensor:
+    """(B, H, W) -> (B, H, W) int32 3x3 min, ``maxval`` outside."""
+    return _mo.erode3x3(_int32_on(x, resolve_device(device)), maxval)
+
+
+def pixel_cascade(f0, f1, f2, *, threshold: int = 40, maxval: int = 255,
+                  fused: bool = True, device="cuda"):
+    """Whole pixel frontend — framediff -> dilate -> erode -> count — in
+    ONE kernel launch per tick.
+
+    Frames are (B, H, W, 3) uint8/int with values in [0, 255]; returns
+    ``(mask (B, H, W) int32, counts (B,) int32)`` where ``counts[b]`` is
+    camera b's foreground pixel count, which ``detect`` uses to skip
+    connected-component labelling for motionless cameras.
+
+    ``fused=False`` runs the staged chain instead — three launches
+    (framediff, dilate, erode) and a mask reduction — kept as the
+    differential reference the fused kernel is held against."""
+    dev = resolve_device(device)
+    f0, f1, f2 = (_int32_on(f, dev) for f in (f0, f1, f2))
+    if fused:
+        return _pc.pixel_cascade(f0, f1, f2, threshold=threshold,
+                                 maxval=maxval)
+    mask = _mo.erode3x3(_mo.dilate3x3(_fd.framediff(
+        f0, f1, f2, threshold=threshold, maxval=maxval)), maxval)
+    return mask, (mask > 0).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def score_crops(score_fn, tokens, *, minimum: int = 8,
+                device="cuda") -> torch.Tensor:
+    """Bucket-padded per-tick crop scoring: ONE classifier launch per tick.
+
+    ``tokens`` is the (N, T) patch-token matrix of every motion crop the
+    whole camera fleet produced this scheduler tick and ``score_fn`` a
+    ``(N, T) int64 tokens on device -> (N,) confidences`` model call.  N
+    pads up to a power-of-two bucket (min 8) with rows of token 0 before
+    the single call, then the pad is sliced back off; pad rows' scores
+    never leave this function."""
+    dev = resolve_device(device)
+    tokens = torch.as_tensor(tokens, dtype=torch.int64)
+    n = tokens.shape[0]
+    tokens = F.pad(tokens, (0, 0, 0, _bk.bucket(n, minimum) - n))
+    return score_fn(tokens.to(dev))[:n]

@@ -48,8 +48,14 @@ SIGNATURES = {
     "triage": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # scores, truths, params, counts; rows, n, iters, min_count; stream
     "calibrate": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # f0, f1, f2, mask; pixels, threshold, maxval; stream
+    "framediff": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # x, out; batch, h, w, op (0 max, 1 min), fill; stream
+    "morphology": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # f0, f1, f2, mask, counts; batch, h, w, threshold, maxval; stream
+    "pixel_cascade": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
-#: the kernels a run of the query pipeline can launch
+#: the kernels a run of the query pipeline (either frontend) can launch
 KERNELS = tuple(SIGNATURES)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -84,8 +90,11 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content- and flag-hashed)."""
+    """Where ``csrc/<name>.cu`` builds to (hashed over its source, the
+    shared ``csrc/*.cuh`` headers and the flags)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

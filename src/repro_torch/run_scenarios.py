@@ -19,6 +19,8 @@ inconsistent row.
   PYTHONPATH=src python -m repro_torch.run_scenarios --scenario all \\
       --cameras 4 --duration 30 --json-out .cache/port-reports --device cpu
   PYTHONPATH=src python -m repro_torch.run_scenarios --scenario drifting_city
+  PYTHONPATH=src python -m repro_torch.run_scenarios --scenario pixel_city \\
+      --duration 10 --device cpu
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.system import (
     PORTED_SCENARIOS,
     SCENARIOS,
     SCHEMES,
+    PixelFrontend,
     run_query,
     synthetic_confidence_stream,
 )
@@ -46,8 +49,12 @@ SMOKE_OVERRIDES = {
     "drifting_city": dict(cameras=8, duration=60.0),
     "multi_query_city": dict(cameras=8, duration=60.0),
     "query_churn": dict(cameras=8, duration=60.0),
+    "pixel_city": dict(duration=10.0),
     "rush_hour": dict(cameras=4, duration=40.0),
 }
+#: presets that exist to exercise the pixel path run on it; the rest on
+#: the model-free confidence stream
+PIXEL_SCENARIOS = ("pixel_city",)
 
 
 def check_consistency(name: str, scheme: str, summary: dict) -> None:
@@ -117,12 +124,29 @@ def variants(sc):
 
 
 def run_scenario(name: str, cameras: int, duration: float, seed: int,
-                 device: str, json_out: str = None) -> dict:
+                 device: str, json_out: str = None,
+                 frontend: PixelFrontend = None) -> dict:
     """Simulate one scenario under every scheme (+ ablation rows); print
-    the table, optionally write its JSON report, and return the report."""
+    the table, optionally write its JSON report, and return the report.
+
+    A ``PIXEL_SCENARIOS`` preset runs on ``frontend``, by default
+    ``PixelFrontend(seed=seed, device=device)``; pass one built with other
+    weights (``params=``) to score with them.  The frontend caches its
+    stream, so the frames are rendered and scored once for all rows."""
     sc = SCENARIOS[name](num_cameras=cameras, duration_s=duration, seed=seed)
-    stream = synthetic_confidence_stream(sc)
-    print(f"\n== {name} [confidence, {device}] — {len(stream)} detections, "
+    if name in PIXEL_SCENARIOS:
+        frontend_name = "pixel"
+        if frontend is None:
+            frontend = PixelFrontend(seed=seed, device=device)
+        stream = frontend.stream(sc)
+    elif frontend is not None:
+        raise ValueError(f"{name} runs on the confidence stream; frontend= "
+                         f"is for {PIXEL_SCENARIOS}")
+    else:
+        frontend_name = "confidence"
+        stream = synthetic_confidence_stream(sc)
+    print(f"\n== {name} [{frontend_name}, {device}] — {len(stream)} "
+          f"detections, "
           f"{sc.num_edges} edge(s) + cloud, {len(sc.query_ids)} "
           f"quer{'y' if len(sc.query_ids) == 1 else 'ies'} ==")
     print(f"{'scheme':22s}{'F2':>8s}{'avg_lat':>9s}{'p99':>9s}"
@@ -131,7 +155,10 @@ def run_scenario(name: str, cameras: int, duration: float, seed: int,
           f"{'l/tick':>7s}")
     per_scheme = {}
     for label, variant in variants(sc):
-        r = run_query(variant, items=stream, device=device)
+        if frontend is not None:
+            r = run_query(variant, frontend=frontend, device=device)
+        else:
+            r = run_query(variant, items=stream, device=device)
         if json_out:
             validate(name, label, r)
         s = r.summary()
@@ -151,12 +178,12 @@ def run_scenario(name: str, cameras: int, duration: float, seed: int,
               f"{s['escalated']:7d}{s['reconciliation_flip_rate']:7.3f}"
               f"{s['rerouted']:9d}{s['kernel_launches']:9d}"
               f"{s['launches_per_tick']:7.2f}")
-    doc = {"scenario": name, "frontend": "confidence",
+    doc = {"scenario": name, "frontend": frontend_name,
            "n_detections": len(stream), "num_edges": sc.num_edges,
            "schemes": per_scheme}
     if json_out:
         os.makedirs(json_out, exist_ok=True)
-        path = os.path.join(json_out, f"{name}-confidence.json")
+        path = os.path.join(json_out, f"{name}-{frontend_name}.json")
         with open(path, "w") as fh:
             json.dump(doc, fh, indent=2)
         print(f"   -> {path}")

@@ -1,21 +1,24 @@
 """End-to-end multi-camera cloud-edge query system on PyTorch/CUDA.
 
-``run_query(scenario, device="cuda")`` wires the confidence-stream
-``Frontend`` -> ONE fused fleet-triage kernel launch per tick (per-(query,
-edge) adaptive thresholds) -> Eq. 7 allocator -> per-node queues ->
-metrics, with the cloud->edge feedback loop's ONE fused calibration launch
-per update period.  The layers and presets are the reference package's
-(``events`` / ``transport`` / ``nodes`` / ``triage`` / ``feedback`` /
-``frontend`` behind a slim ``pipeline`` orchestrator); ``SCENARIOS`` keeps
-every preset so names resolve, and ``run_query`` refuses with
-``NotImplementedError`` the ones whose stages come in later slices
-(``metropolis``: scan supersteps; ``vehicle_pursuit``, ``crowd_flow``:
-track queries; ``pixel_city``: the pixel frontend).
+``run_query(scenario, device="cuda")`` wires a ``Frontend`` (the
+confidence stream, or the pixel path: ONE fused pixel-cascade kernel
+launch and one CQ-classifier call per tick) -> ONE fused fleet-triage
+kernel launch per tick (per-(query, edge) adaptive thresholds) -> Eq. 7
+allocator -> per-node queues -> metrics, with the cloud->edge feedback
+loop's ONE fused calibration launch per update period.  The layers and
+presets are the reference package's (``events`` / ``transport`` /
+``nodes`` / ``triage`` / ``feedback`` / ``frontend`` /
+``pixel_frontend`` behind a slim ``pipeline`` orchestrator);
+``SCENARIOS`` keeps every preset so names resolve, and ``run_query``
+refuses with ``NotImplementedError`` the ones whose stages come in later
+slices (``metropolis``: scan supersteps; ``vehicle_pursuit``,
+``crowd_flow``: track queries).
 """
 from repro_torch.system.feedback import FeedbackStage, apply_calibration
 from repro_torch.system.frontend import ConfidenceStreamFrontend, Frontend
 from repro_torch.system.metrics import QueryReport, StreamingWindows
 from repro_torch.system.pipeline import QueryPipeline, SimDriver, run_query
+from repro_torch.system.pixel_frontend import PixelFrontend
 from repro_torch.system.queries import DEFAULT_QUERY, QuerySet, QuerySpec
 from repro_torch.system.scenario import (
     SCENARIOS,
@@ -45,7 +48,7 @@ from repro_torch.system.scenario import (
 PORTED_SCENARIOS = (
     "single_edge", "homogeneous_multi_edge", "heterogeneous_multi_edge",
     "bursty_crowds", "straggler_edge", "city_scale", "drifting_city",
-    "multi_query_city", "query_churn", "rush_hour")
+    "multi_query_city", "query_churn", "rush_hour", "pixel_city")
 
 __all__ = [
     "ConfidenceStreamFrontend",
@@ -53,6 +56,7 @@ __all__ = [
     "FeedbackStage",
     "Frontend",
     "PORTED_SCENARIOS",
+    "PixelFrontend",
     "QueryPipeline",
     "QueryReport",
     "QuerySet",

@@ -1,18 +1,16 @@
 """Frontend seam: how detections enter the query pipeline.
 
 A ``Frontend`` turns a scenario into the per-item detection stream the
-event loop consumes.  The reference package has two implementations;
-this package ports the first:
+event loop consumes.  Two implementations, as in the reference package:
 
 - ``ConfidenceStreamFrontend`` — pre-scored confidences: either a
   model-free synthetic stream from the scenario's camera fleet or an
   injected pre-scored stream (the CQ-model-scored benchmark workload)
   re-homed onto the scenario's topology.
-- ``PixelFrontend`` — the paper's actual pixel path: rendered frames ->
-  framediff/morphology kernels -> moving object crops -> CQ-classifier
-  confidences.  It arrives with the pixel-frontend slice of the port;
-  until then ``run_query(frontend="pixel")`` raises
-  ``NotImplementedError``.
+- ``PixelFrontend`` (``system/pixel_frontend.py``) — the paper's actual
+  pixel path: rendered frames -> the fused pixel-cascade kernel (or the
+  staged framediff/morphology kernels) -> moving object crops ->
+  CQ-classifier confidences.
 
 Frontends may record per-stage wall-clock seconds in ``self._timings``
 while building the stream; ``run_query`` merges ``Frontend.timings`` into

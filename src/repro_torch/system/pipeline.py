@@ -4,9 +4,9 @@ The engine is layered; this module only composes the layers and runs the
 event loop:
 
   frontend   repro_torch.system.frontend   detection stream (the model-free
-                                     confidence stream; the pixel/CNN path
-                                     slots in behind the same ``Frontend``
-                                     seam in a later slice)
+                                     confidence stream, or the pixel/CNN
+                                     path of ``system.pixel_frontend``
+                                     behind the same ``Frontend`` seam)
   events     repro_torch.system.events     typed events + time-ordered queue
   queries    repro_torch.system.queries    runtime CQ lifecycle: arrival ->
                                      Fig. 5 cloud fine-tune -> per-edge
@@ -44,8 +44,8 @@ the port.
 Every kernel launch of a run goes to one ``device``: the card unless the
 caller asks for the CPU, where each kernel wrapper runs its plain PyTorch
 version.  Stages this slice of the port does not carry — scan supersteps
-(``Scenario.superstep``), track queries (``QuerySpec.kind == "track"``),
-the pixel frontend and other drivers — raise ``NotImplementedError``.
+(``Scenario.superstep``), track queries (``QuerySpec.kind == "track"``)
+and other drivers — raise ``NotImplementedError``.
 
 The serving control plane rides on the seam: per-tenant admission
 (token-bucket quotas + backlog shedding, ``repro_torch.serving.api``), priority
@@ -88,6 +88,7 @@ from repro_torch.system.events import (
 )
 from repro_torch.system.feedback import FeedbackStage
 from repro_torch.system.frontend import ConfidenceStreamFrontend
+from repro_torch.system.pixel_frontend import PixelFrontend
 from repro_torch.system.nodes import NodeBank
 from repro_torch.system.queries import QuerySet, QuerySpec
 from repro_torch.system.scenario import Scenario
@@ -838,9 +839,6 @@ _SUPERSTEP_MSG = (
 _TRACK_MSG = (
     "track queries (QuerySpec.kind == 'track') come with the track-query "
     "slice of the PyTorch port")
-_PIXEL_MSG = (
-    "frontend='pixel' comes with the pixel-frontend slice of the PyTorch "
-    "port")
 _DRIVER_MSG = (
     "only SimDriver is ported; the asyncio AsyncDriver comes with the "
     "real-time slice of the PyTorch port")
@@ -872,7 +870,11 @@ def run_query(scenario: Scenario, *,
     pre-scored stream re-homed onto this scenario's topology, or, with no
     items, the model-free synthetic stream from the camera fleet; a
     ``Frontend`` instance supplies its own stream (mutually exclusive with
-    ``items``).  ``"pixel"`` raises ``NotImplementedError`` in this slice.
+    ``items``).  ``"pixel"`` is the paper's full pixel path
+    (``PixelFrontend(device=device)``): rendered frames -> the fused
+    pixel-cascade kernel -> motion crops -> CQ-classifier confidences,
+    with per-stage wall-clock in ``QueryReport.stage_timings``; it renders
+    its own stream, so it refuses ``items``.
 
     ``device`` is where every kernel launch goes: ``"cuda"`` (default)
     runs the hand-written kernels on the card and raises ``RuntimeError``
@@ -882,13 +884,18 @@ def run_query(scenario: Scenario, *,
     """
     if isinstance(frontend, str):
         if frontend == "pixel":
-            raise NotImplementedError(_PIXEL_MSG)
-        if frontend != "confidence":
+            if items is not None:
+                raise ValueError(
+                    "items= cannot combine with frontend='pixel' "
+                    "(the pixel path renders its own stream)")
+            frontend = PixelFrontend(device=device)
+        elif frontend == "confidence":
+            frontend = ConfidenceStreamFrontend(
+                items if items is not None else scenario.items)
+        else:
             raise ValueError(
                 f"unknown frontend {frontend!r} (expected 'confidence', "
                 "'pixel', or a Frontend instance)")
-        frontend = ConfidenceStreamFrontend(
-            items if items is not None else scenario.items)
     elif items is not None:
         raise ValueError("pass either items= or frontend=, not both "
                          "(a custom frontend produces its own stream)")

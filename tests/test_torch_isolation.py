@@ -39,19 +39,22 @@ def test_no_jax_or_reference_import(path):
 def test_port_covers_the_kernel_sources():
     assert len(PORT_FILES) > 30
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"triage.cu",
-                                                    "calibrate.cu"}
+    assert {p.name for p in csrc.glob("*.cu")} == {
+        "triage.cu", "calibrate.cu", "framediff.cu", "morphology.cu",
+        "pixel_cascade.cu"}
 
 
 def test_running_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "from repro_torch.system import single_edge, drifting_city, "
-        "run_query\n"
+        "pixel_city, run_query\n"
         "r = run_query(single_edge(duration_s=5.0), device='cpu')\n"
         "d = run_query(drifting_city(num_cameras=4, duration_s=10.0), "
         "device='cpu')\n"
-        "assert r.n_items > 0 and d.n_items > 0\n"
+        "p = run_query(pixel_city(num_cameras=2, duration_s=3.0), "
+        "frontend='pixel', device='cpu')\n"
+        "assert r.n_items > 0 and d.n_items > 0 and p.n_items > 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -88,9 +91,21 @@ def test_unported_presets_raise(name, kw, match):
         run_query(P.SCENARIOS[name](**kw), device="cpu")
 
 
-def test_pixel_frontend_raises():
-    with pytest.raises(NotImplementedError, match="pixel"):
-        run_query(P.pixel_city(), frontend="pixel", device="cpu")
+def test_pixel_frontend_runs_small_on_the_cpu():
+    rep = run_query(P.pixel_city(num_cameras=2, duration_s=3.0),
+                    frontend="pixel", device="cpu")
+    assert rep.n_items > 0
+    assert rep.stage_timings["classify_s"] > 0
+    assert rep.summary()["launches_per_tick"] == 1.0
+
+
+def test_pixel_frontend_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal only happens on a host without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_query(P.pixel_city(), frontend="pixel")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.PixelFrontend()
 
 
 def test_other_drivers_raise():
