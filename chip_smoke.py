@@ -16,7 +16,12 @@ Phases, each fatal on failure:
    ``CAL_ATOL`` with exact counts; the pixel cascade, framediff, dilate
    and erode exactly, at ``PIXEL_SHAPES``, on sparse motion, on a static
    scene and at 1080p (``HD``), with the fused cascade also held against
-   the staged framediff -> dilate -> erode launches;
+   the staged framediff -> dilate -> erode launches; the scan superstep
+   bit for bit (routes, slots and f32 thresholds) at ``SUPERSTEP_SHAPES``
+   — the metropolis cap slab among them — with masks all off and all on,
+   drains on both sides of the interval and capacity overflow; the track
+   association at the reference test's shapes, K = 0, an all-masked query
+   and a tie, ``assign`` exactly and ``sim`` within ``SIM_ATOL``;
 4. the main path: ``run_query(city_scale(), device="cuda")`` at full size
    (64 edges, 512 cameras, 60 s) with the launch counters zeroed just
    before and read just after; the same run with ``device="cpu"`` must
@@ -37,7 +42,18 @@ Phases, each fatal on failure:
    the identical stream from one framediff and two morphology launches a
    tick.  Prints the render / framediff / CCL / classify split of the
    card's run, of a second card run and of the host's;
-7. time each kernel and its plain version on the inputs the main paths
+7. the superstep path: ``run_query(metropolis(duration_s=METRO_S))`` at the
+   preset's full fleet (10,240 cameras, 1,024 edges, 24 queries, 10 Hz):
+   superstep launches must equal ``supersteps`` and each must fuse >= 10
+   triaged ticks on average; at the smoke size (1,024 cameras, 12 s) the
+   card's report must equal the CPU's, and ``superstep=1`` must be
+   bit-identical to the preset's ``superstep=128``;
+8. the track path: ``vehicle_pursuit()`` and ``crowd_flow()`` on the card:
+   one associate launch per tick with crops and a live table, summaries
+   equal to the CPU's, fewer ID switches than the ``predictive_handoff=
+   False`` ablation, and ``AsyncDriver(VirtualClock())`` identical to
+   ``SimDriver`` on ``vehicle_pursuit``;
+9. time each kernel and its plain version on the inputs the main paths
    gave it (the pixel kernels also at 1080p), and print
    ``{"kernels": [...]}`` (per kernel: launches per path, max error
    against the plain version, kernel/plain ms with the stream pre-loaded,
@@ -105,6 +121,24 @@ PIXEL_OPS = {"pixel_cascade": 22 + 18, "framediff": 22, "morph3x3": 9}
 #: a pending kernel that holds the stream while the host enqueues a timed
 #: loop, so the events time the device, not the Python launch path
 HOLD_CYCLES = 500_000_000
+#: sim tolerance, association kernel vs plain version: the same f32 dots,
+#: a chain of FMAs on the card and a matmul in the plain version
+#: (``tests/test_track_query.py``'s tolerance)
+SIM_ATOL = 1e-5
+#: (S, R, N) superstep slabs: one row, metropolis's smallest and largest
+#: smoke-size slabs, the cap slab (``MAX_SUPERSTEP_ELEMS``), an odd S
+SUPERSTEP_SHAPES = [(1, 1, 8), (2, 16, 8), (64, 8192, 8), (32, 16384, 8),
+                    (7, 100, 8)]
+#: (M, K, D) association problems of ``tests/test_track_query.py``
+ASSOC_SHAPES = [(5, 7, 16), (1, 1, 4), (16, 16, 32)]
+#: simulated seconds of the full-fleet metropolis run: only the duration
+#: of the preset (60 s) is cut, never its fleet
+METRO_S = 12.0
+#: metropolis at the smoke size of the reference's tests and runner
+METRO_SMOKE = dict(num_cameras=1024, duration_s=12.0)
+#: seconds into the script after which the host's full-fleet metropolis
+#: run (a comparison, ~1.5 minutes) is skipped to stay inside the limit
+HOST_METRO_BUDGET_S = 420.0
 
 
 def fail(msg: str) -> None:
@@ -373,18 +407,24 @@ def pixel_bound_ms(name: str, shape) -> tuple:
 class Recorder:
     """Wraps a kernel wrapper to keep the first input of every distinct
     first-argument shape the main path gives it (copies of the tensors,
-    then the keywords, for timing afterwards)."""
+    then the keywords, for timing afterwards); with ``keep_all`` also
+    every call's input, in order, in ``calls``."""
 
-    def __init__(self, module, attr: str):
+    def __init__(self, module, attr: str, keep_all: bool = False):
         self.module, self.attr = module, attr
         self.inner = getattr(module, attr)
         self.inputs = {}
+        self.keep_all = keep_all
+        self.calls = []
 
     def __enter__(self):
         def wrapped(*args, **kw):
             key = tuple(args[0].shape)
-            if key not in self.inputs:
-                self.inputs[key] = (*(a.clone() for a in args), kw)
+            if key not in self.inputs or self.keep_all:
+                copy = (*(a.clone() for a in args), kw)
+                self.inputs.setdefault(key, copy)
+                if self.keep_all:
+                    self.calls.append(copy)
             return self.inner(*args, **kw)
         setattr(self.module, self.attr, wrapped)
         return self
@@ -403,6 +443,141 @@ def triage_bound_ms(rows: int, n: int) -> tuple:
 def calibrate_bound_ms(rows: int, n: int, iters: int) -> tuple:
     nbytes = rows * n * 8 + rows * 12
     ops = rows * n * (8 + 20 * iters)   # prologue + one Newton step a lane
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def superstep_slab(torch, g, S: int, R: int, N: int, mask: str = "random"):
+    """A superstep input on the CPU: confidences with pad lanes, start
+    thresholds, a tick mask (``random``, all ``off`` or all ``on``), and
+    drains below, at and above the interval."""
+    conf = torch.rand((S, R, N), generator=g)
+    lengths = torch.randint(0, N + 1, (S, R), generator=g)
+    conf[torch.arange(N)[None, None, :] >= lengths[..., None]] = -1.0
+    th0 = torch.stack([0.5 + 0.5 * torch.rand(R, generator=g),
+                       0.45 * torch.rand(R, generator=g)], dim=1)
+    masks = {"random": lambda: torch.rand((S, R), generator=g) < 0.6,
+             "off": lambda: torch.zeros((S, R), dtype=torch.bool),
+             "on": lambda: torch.ones((S, R), dtype=torch.bool)}
+    interval = 0.1
+    drain = 0.3 * torch.rand(R, generator=g)
+    drain[: R // 4] = interval
+    gains = torch.tensor([0.05, 0.2, 0.3, interval])
+    return conf, th0, masks[mask](), drain, gains
+
+
+def same_superstep(torch, SS, args) -> None:
+    """Kernel == plain version on one input, every output bit for bit."""
+    *ts, kw = args
+    got, want = SS.superstep(*ts, **kw), SS.superstep_torch(*ts, **kw)
+    for a, b, what in zip(got, want, ("routes", "slots", "ths")):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"superstep {what} differ from the plain version at "
+                 f"{tuple(ts[0].shape)}")
+
+
+def check_superstep(torch, SS, dev) -> None:
+    g = torch.Generator(device="cpu").manual_seed(2)
+    cases = [(shape, 8, "random") for shape in SUPERSTEP_SHAPES]
+    cases += [((5, 64, 8), 8, "off"), ((5, 64, 8), 8, "on"),
+              ((3, 32, 40), 3, "on")]            # the last overflows
+    for (S, R, N), capacity, mask in cases:
+        ins = [t.to(dev) for t in superstep_slab(torch, g, S, R, N, mask)]
+        same_superstep(torch, SS, (*ins, {"capacity": capacity}))
+    print(f"superstep bit-exact at {SUPERSTEP_SHAPES}, masks off/on and "
+          f"capacity overflow", flush=True)
+
+
+def assoc_problem(torch, F, g, m: int, k: int, d: int, nq: int = 2):
+    emb = F.normalize(torch.randn((m, d), generator=g), dim=1)
+    trk = F.normalize(torch.randn((k, d), generator=g), dim=1)
+    cq = torch.randint(0, nq, (m,), generator=g, dtype=torch.int32)
+    tq = torch.randint(0, nq, (k,), generator=g, dtype=torch.int32)
+    thr = -0.5 + 1.4 * torch.rand(m, generator=g)
+    return emb, trk, cq, tq, thr
+
+
+def assoc_diff(torch, got, want) -> float:
+    """``assign`` must be equal; returns max |sim difference|."""
+    if not torch.equal(got[0].cpu(), want[0].cpu()):
+        flips = int((got[0].cpu() != want[0].cpu()).sum())
+        fail(f"associate: {flips} assignments differ from the plain "
+             f"version")
+    return float((got[1].cpu() - want[1].cpu()).abs().max()) \
+        if got[1].numel() else 0.0
+
+
+def check_associate(torch, F, SIM, ops, dev) -> None:
+    g = torch.Generator(device="cpu").manual_seed(3)
+    problems = [assoc_problem(torch, F, g, *mkd) for mkd in ASSOC_SHAPES]
+    problems.append(assoc_problem(torch, F, g, 4, 0, 8))          # K = 0
+    emb, trk, cq, tq, thr = assoc_problem(torch, F, g, 6, 5, 8)
+    cq[::2] = 7                      # a query that owns no track
+    problems.append((emb, trk, cq, tq, torch.full((6,), -0.9)))
+    trk = torch.tensor([[0.0, 1, 0, 0], [1, 0, 0, 0], [1, 0, 0, 0]])
+    emb = torch.tensor([[1.0, 0, 0, 0], [1, 0, 0, 0]])
+    tie = (emb, trk, torch.zeros(2, dtype=torch.int32),
+           torch.zeros(3, dtype=torch.int32), torch.full((2,), 0.5))
+    problems.append(tie)
+    err = 0.0
+    for problem in problems:
+        ins = [t.to(dev) for t in problem]
+        err = max(err, assoc_diff(torch, SIM.associate(*ins),
+                                  SIM.associate_torch(*ins)))
+        err = max(err, assoc_diff(
+            torch, ops.associate_tracks(*problem, device=dev),
+            ops.associate_tracks(*problem, device="cpu")))
+    if not err <= SIM_ATOL:
+        fail(f"associate sim differs by {err} > {SIM_ATOL}")
+    assign = SIM.associate(*(t.to(dev) for t in tie))[0].tolist()
+    if assign != [1, 2]:
+        fail(f"associate tie: {assign}, want the lowest index first [1, 2]")
+    print(f"associate exact at {ASSOC_SHAPES}, K=0, a masked query and a "
+          f"tie; sim within {err:.3g}", flush=True)
+
+
+class TickAudit:
+    """Wraps ``TrackStage.tick`` to check the launch budget tick by tick:
+    exactly one associate launch where the tick has crops and a live
+    track table, none elsewhere."""
+
+    def __init__(self, TK, SIM):
+        self.TK, self.SIM = TK, SIM
+        self.inner = TK.TrackStage.tick
+        self.ticks = self.expected = self.bad = 0
+
+    def __enter__(self):
+        audit = self
+
+        def wrapped(stage, t, batches):
+            crops = any(it.emb is not None for b in batches.values()
+                        for it in b)
+            live = any(tr.last_seen >= t - stage.sc.track_ttl_s
+                       for tr in stage.tracks.values())
+            before = audit.SIM.LAUNCHES
+            out = audit.inner(stage, t, batches)
+            want = int(crops and live)
+            audit.ticks += 1
+            audit.expected += want
+            audit.bad += int(audit.SIM.LAUNCHES - before != want)
+            return out
+        self.TK.TrackStage.tick = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.TK.TrackStage.tick = self.inner
+
+
+def superstep_bound_ms(S: int, R: int, N: int) -> tuple:
+    nbytes = S * R * N * 12 + S * R * 9 + R * 12
+    ops = S * R * N * 4 + S * R * 6
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def associate_bound_ms(M: int, K: int, D: int) -> tuple:
+    nbytes = (M + K) * D * 4 + M * 8 + K * 4 + M * 8
+    ops = 2 * M * K * D
     t_b, t_o = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
@@ -496,11 +671,16 @@ def main() -> None:
     from repro_torch.kernels import morphology as MO
     from repro_torch.kernels import ops, runtime
     from repro_torch.kernels import pixel_cascade as PC
+    from repro_torch.kernels import similarity as SIM
+    from repro_torch.kernels import superstep as SS
     from repro_torch.kernels import triage as T
-    from repro_torch.system import (PixelFrontend, city_scale, drifting_city,
-                                    pixel_city, run_query)
+    from repro_torch.serving.engine import AsyncDriver, VirtualClock
+    from repro_torch.system import (PixelFrontend, city_scale, crowd_flow,
+                                    drifting_city, metropolis, pixel_city,
+                                    run_query, vehicle_pursuit)
+    from repro_torch.system import tracks as TK
     from repro_torch.system.scenario import frame_schedule
-    counters = (T, C, FD, MO, PC)
+    counters = (T, C, FD, MO, PC, SS, SIM)
 
     def zero_counts():
         for mod in counters:
@@ -533,6 +713,9 @@ def main() -> None:
     torch.cuda.synchronize()
     print("triage exact, calibrate within", CAL_ATOL, flush=True)
     check_pixel(torch, FD, MO, PC, ops, dev)
+    torch.cuda.synchronize()
+    check_superstep(torch, SS, dev)
+    check_associate(torch, F, SIM, ops, dev)
     torch.cuda.synchronize()
 
     phase("main path: city_scale (64 edges, 512 cameras, 60 s)")
@@ -685,6 +868,158 @@ def main() -> None:
         fail(f"staged launches {staged_counts} vs {ticks} ticks (want "
              f"framediff = ticks, morphology = 2 x ticks, cascade 0)")
 
+    phase(f"superstep path: metropolis, full fleet, {METRO_S} s")
+    msc = metropolis(duration_s=METRO_S)
+    with Recorder(SS, "superstep", keep_all=True) as ss_full:
+        zero_counts()
+        t0 = time.perf_counter()
+        mrep = run_query(msc, device="cuda")
+        torch.cuda.synchronize()
+        metro_cuda_s = time.perf_counter() - t0
+        metro_counts = read_counts()
+    m_cuda = mrep.summary()
+    print(f"cuda {metro_cuda_s:.2f} s for {METRO_S} s of {msc.num_cameras} "
+          f"cameras, {msc.num_edges} edges, {len(msc.queries)} queries: "
+          f"{mrep.n_items} items, triaged_ticks {mrep.triaged_ticks}, "
+          f"supersteps {mrep.supersteps}, superstep launches "
+          f"{metro_counts['superstep']}, triage launches "
+          f"{metro_counts['triage']}, stage_timings {mrep.stage_timings}, "
+          f"slabs {[list(a[0].shape) for a in ss_full.calls]}", flush=True)
+    if (msc.num_cameras, msc.num_edges, len(msc.queries)) != (10240, 1024, 24):
+        fail("metropolis is not at the preset's full fleet")
+    if not 0 < metro_counts["superstep"] == mrep.supersteps:
+        fail(f"superstep launches {metro_counts['superstep']} != supersteps "
+             f"{mrep.supersteps} (must be equal and > 0)")
+    if not mrep.triaged_ticks / mrep.supersteps >= 10.0:
+        fail(f"metropolis fused only {mrep.triaged_ticks} / "
+             f"{mrep.supersteps} triaged ticks per superstep")
+    if mrep.n_items == 0 or not all(
+            v == v for v in m_cuda.values() if isinstance(v, float)):
+        fail("metropolis answered nothing or reported NaN")
+    metro_cpu_s = None
+    if time.perf_counter() - t_all < HOST_METRO_BUDGET_S:
+        t0 = time.perf_counter()
+        m_cpu = run_query(msc, device="cpu").summary()
+        metro_cpu_s = time.perf_counter() - t0
+        print(f"cpu {metro_cpu_s:.2f} s, summary "
+              f"{'identical to' if m_cpu == m_cuda else 'differs from'} "
+              f"cuda", flush=True)
+        if m_cpu != m_cuda:
+            diff = {k: (m_cuda[k], m_cpu.get(k)) for k in m_cuda
+                    if m_cuda[k] != m_cpu.get(k)}
+            fail(f"full-fleet metropolis differs between cuda and cpu: {diff}")
+    else:
+        print(f"cpu run of the full fleet skipped: "
+              f"{time.perf_counter() - t_all:.0f} s into the script",
+              flush=True)
+
+    def report_view(r):
+        return (r.summary(), r.per_query_summary(), r.accuracy_timeline(),
+                r.thresholds, r.queries)
+
+    ssc = metropolis(**METRO_SMOKE)
+    with Recorder(SS, "superstep", keep_all=True) as ss_smoke:
+        zero_counts()
+        t0 = time.perf_counter()
+        rs_cuda = run_query(ssc, device="cuda")
+        torch.cuda.synchronize()
+        smoke_cuda_s = time.perf_counter() - t0
+        smoke_counts = read_counts()
+    t0 = time.perf_counter()
+    rs_cpu = run_query(ssc, device="cpu")
+    smoke_cpu_s = time.perf_counter() - t0
+    if report_view(rs_cuda) != report_view(rs_cpu):
+        fail("metropolis smoke report differs between cuda and cpu")
+    zero_counts()
+    r1 = run_query(dataclasses.replace(ssc, superstep=1), device="cuda")
+    k1_counts = read_counts()
+    launch_keys = ("kernel_launches", "launches_per_tick", "supersteps")
+    v128, v1 = report_view(rs_cuda), report_view(r1)
+    if ({k: v for k, v in v1[0].items() if k not in launch_keys}
+            != {k: v for k, v in v128[0].items() if k not in launch_keys}
+            or v1[1:] != v128[1:]):
+        fail("metropolis superstep=1 is not bit-identical to superstep=128")
+    if not k1_counts["superstep"] == r1.supersteps == r1.triaged_ticks:
+        fail(f"superstep=1 launched {k1_counts['superstep']} times for "
+             f"{r1.triaged_ticks} triaged ticks")
+    print(f"smoke size: cuda {smoke_cuda_s:.2f} s, cpu {smoke_cpu_s:.2f} s, "
+          f"{rs_cuda.n_items} items, supersteps {rs_cuda.supersteps} "
+          f"(launches {smoke_counts['superstep']}) for "
+          f"{rs_cuda.triaged_ticks} triaged ticks; report identical to cpu; "
+          f"superstep=1 ({k1_counts['superstep']} launches) bit-identical "
+          f"to superstep=128", flush=True)
+    if smoke_counts["superstep"] != rs_cuda.supersteps:
+        fail("smoke superstep launches != supersteps")
+
+    phase("track path: vehicle_pursuit (12 cameras, 6 edges, 60 s), "
+          "crowd_flow (8 cameras, 4 edges, 45 s)")
+    track = {}
+    assoc_recs = {}
+    for name, make in (("vehicle_pursuit", vehicle_pursuit),
+                       ("crowd_flow", crowd_flow)):
+        tsc = make()
+        with Recorder(SIM, "associate", keep_all=True) as rec, \
+                TickAudit(TK, SIM) as audit:
+            zero_counts()
+            t0 = time.perf_counter()
+            tr = run_query(tsc, device="cuda")
+            torch.cuda.synchronize()
+            cuda_s = time.perf_counter() - t0
+            counts = read_counts()
+        assoc_recs[name] = rec
+        t_cuda = tr.summary()
+        t0 = time.perf_counter()
+        t_cpu = run_query(tsc, device="cpu").summary()
+        cpu_s = time.perf_counter() - t0
+        track[name] = {"cuda_s": cuda_s, "cpu_s": cpu_s, "items": tr.n_items,
+                       "ticks": tr.ticks, "track_items": tr.track_items,
+                       "track_launches": tr.track_launches,
+                       "associate_launches": counts["similarity"],
+                       "triage_launches": counts["triage"],
+                       "id_switches": tr.id_switches,
+                       "prewarm_hits": tr.prewarm_hits,
+                       "associate_s": tr.stage_timings["associate_s"],
+                       "identical_to_cpu": t_cuda == t_cpu}
+        print(f"{name}: {json.dumps(track[name])}; crop shapes "
+              f"{sorted(rec.inputs)}", flush=True)
+        if t_cuda != t_cpu:
+            flips, first = 0, None
+            for emb, trk, cq, tq, thr, _ in rec.calls:
+                got = SIM.associate(emb, trk, cq, tq, thr)[0].cpu()
+                want = SIM.associate_torch(
+                    *(t.cpu() for t in (emb, trk, cq, tq, thr)))[0]
+                bad = (got != want).nonzero().flatten().tolist()
+                flips += len(bad)
+                if bad and first is None:
+                    first = (tuple(emb.shape), bad[0], int(got[bad[0]]),
+                             int(want[bad[0]]))
+            fail(f"{name} summary differs between cuda and cpu: "
+                 f"{flips} flipped assignments on the recorded inputs, first "
+                 f"(shape, crop, cuda, cpu) {first}")
+        if not 0 < counts["similarity"] == tr.track_launches <= tr.ticks:
+            fail(f"{name}: associate launches {counts['similarity']} vs "
+                 f"track_launches {tr.track_launches} vs ticks {tr.ticks}")
+        if audit.bad or audit.expected != counts["similarity"]:
+            fail(f"{name}: {audit.bad} of {audit.ticks} track ticks broke "
+                 f"the one-launch-per-tick-with-crops-and-tracks budget")
+    psc_t = vehicle_pursuit()
+    off = run_query(dataclasses.replace(psc_t, predictive_handoff=False),
+                    device="cuda")
+    if not track["vehicle_pursuit"]["id_switches"] < off.id_switches:
+        fail(f"vehicle_pursuit: hand-off {track['vehicle_pursuit']['id_switches']}"
+             f" id switches, not fewer than the ablation's {off.id_switches}")
+    sim_r = run_query(psc_t, device="cuda")
+    async_r = run_query(psc_t, driver=AsyncDriver(VirtualClock()),
+                        device="cuda")
+    if async_r.summary() != sim_r.summary() or not (
+            async_r.latencies.shape == sim_r.latencies.shape
+            and (async_r.latencies == sim_r.latencies).all()):
+        fail("vehicle_pursuit: AsyncDriver(VirtualClock()) differs from "
+             "SimDriver on the card")
+    print(f"vehicle_pursuit: {track['vehicle_pursuit']['id_switches']} id "
+          f"switches with hand-off vs {off.id_switches} without; "
+          f"AsyncDriver identical to SimDriver", flush=True)
+
     phase("timing on the main paths' inputs")
     # the most frequent main-path shape family: time the largest recorded
     # input of each kernel (every recorded input is also re-checked)
@@ -729,6 +1064,35 @@ def main() -> None:
         torch, F, FD, MO, PC, dev,
         {"pixel_cascade": pc_rec, "framediff": fd_rec, "morph3x3": mo_rec},
         {"pixel_city": pixel_counts, "pixel_city_staged": staged_counts})
+    # the scan superstep: every recorded metropolis slab re-checked bit for
+    # bit, the largest (the cap slab where the run reaches it) timed
+    ss_calls = ss_full.calls + ss_smoke.calls
+    for args in ss_calls:
+        same_superstep(torch, SS, args)
+    *ss_in, ss_kw = max(ss_full.calls, key=lambda a: a[0].numel())
+    ss_ms = device_ms(torch, lambda: SS.superstep(*ss_in, **ss_kw), 100)
+    ss_plain = device_ms(torch, lambda: SS.superstep_torch(*ss_in, **ss_kw),
+                         5)
+    ss_bound, ss_by = superstep_bound_ms(*ss_in[0].shape)
+    # the association: every recorded track input re-checked, the largest
+    # timed; the library yardstick is the score step alone
+    assoc_calls = [c for rec in assoc_recs.values() for c in rec.calls]
+    a_err = 0.0
+    for *ins, _ in assoc_calls:
+        a_err = max(a_err, assoc_diff(torch, SIM.associate(*ins),
+                                      SIM.associate_torch(*ins)))
+    if not a_err <= SIM_ATOL:
+        fail(f"associate sim differs by {a_err} on main-path inputs")
+    *a_in, _ = max(assoc_calls, key=lambda a: a[0].shape[0] * a[1].shape[0])
+    a_ms = device_ms(torch, lambda: SIM.associate(*a_in), 200)
+    a_plain = device_ms(torch, lambda: SIM.associate_torch(*a_in), 10)
+    a_lib = device_ms(torch, lambda: torch.matmul(a_in[0], a_in[1].T), 200)
+    (am, ad), ak = a_in[0].shape, a_in[1].shape[0]
+    a_bound, a_by = associate_bound_ms(am, ak, ad)
+    ss_paths = {"metropolis": metro_counts["superstep"],
+                "metropolis_smoke": smoke_counts["superstep"],
+                "metropolis_smoke_superstep1": k1_counts["superstep"]}
+    a_paths = {n: t["associate_launches"] for n, t in track.items()}
     kernels = [
         {"name": "triage_fleet", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/triage.cu",
@@ -752,6 +1116,21 @@ def main() -> None:
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
          "bound_by": c_by, "library_ms": None},
         *pixel_rows,
+        {"name": "superstep", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/superstep.cu",
+         "replaces": "src/repro/system/superstep.py:89",
+         "launches": sum(ss_paths.values()), "launches_by_path": ss_paths,
+         "shape": list(ss_in[0].shape), "checked_inputs": len(ss_calls),
+         "max_abs_err": 0.0, "ms": ss_ms, "plain_ms": ss_plain,
+         "bound_ms": ss_bound, "bound_by": ss_by, "library_ms": None},
+        {"name": "associate", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/associate.cu",
+         "replaces": "src/repro/kernels/similarity.py:96",
+         "launches": sum(a_paths.values()), "launches_by_path": a_paths,
+         "shape": [am, ak, ad], "checked_inputs": len(assoc_calls),
+         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
+         "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib,
+         "library": "torch.matmul(emb, trk.T): the score step only"},
     ]
     print(json.dumps({"paths": {
         "city_scale": {"cuda_s": city_cuda_s, "cpu_s": city_cpu_s,
@@ -770,7 +1149,24 @@ def main() -> None:
                        "split_cuda_second_s": split_warm,
                        "split_cpu_s": split_cpu,
                        "max_abs_dconf": dconf,
-                       "identical_to_cpu": pixel_same}},
+                       "identical_to_cpu": pixel_same},
+        "metropolis": {"cuda_s": metro_cuda_s, "cpu_s": metro_cpu_s,
+                       "duration_s": METRO_S, "cameras": msc.num_cameras,
+                       "edges": msc.num_edges, "queries": len(msc.queries),
+                       "items": mrep.n_items,
+                       "triaged_ticks": mrep.triaged_ticks,
+                       "supersteps": mrep.supersteps,
+                       "superstep_launches": metro_counts["superstep"],
+                       "triage_s": mrep.stage_timings["triage_s"],
+                       "slabs": [list(a[0].shape) for a in ss_full.calls]},
+        "metropolis_smoke": {"cuda_s": smoke_cuda_s, "cpu_s": smoke_cpu_s,
+                             "items": rs_cuda.n_items,
+                             "triaged_ticks": rs_cuda.triaged_ticks,
+                             "supersteps": rs_cuda.supersteps,
+                             "superstep1_launches": k1_counts["superstep"],
+                             "identical_to_cpu": True,
+                             "superstep1_bit_identical": True},
+        **track},
         "triage_one_row": {"shape": [1, 16], "ms": one_ms,
                            "plain_ms": one_plain,
                            "bound_ms": triage_bound_ms(1, 16)[0]},

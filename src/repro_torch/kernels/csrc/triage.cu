@@ -20,14 +20,13 @@
 //
 // Design: the TPU kernel ran the whole fleet as one VMEM-resident block
 // and a jnp.cumsum along each row.  Here each warp owns a row (grid-stride
-// loop over rows, so every R up to 2^17 fits one launch); the warp walks
-// its row in 32-lane chunks with one coalesced 4-byte load per lane.  The
-// escalate mask of a chunk is one __ballot_sync, the lane's exclusive
-// in-chunk prefix is __popc(ballot & lanemask_lt), and a per-warp carry
-// adds the earlier chunks: exact integer prefix sums with no shared
-// memory and no block-level synchronisation.
+// loop over rows, so every R up to 2^17 fits one launch) and runs
+// triage_row.cuh's ballot/popc prefix over it, the same row triage the
+// scan superstep (superstep.cu) runs.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "triage_row.cuh"
 
 namespace {
 
@@ -42,31 +41,14 @@ triage_fleet_kernel(const float* __restrict__ conf,
                     int32_t* __restrict__ slots,
                     int32_t* __restrict__ counts,
                     int rows, int n, int capacity) {
-  const int lane = threadIdx.x & 31;
-  const unsigned lanemask_lt = (1u << lane) - 1u;
   const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int warp_stride = gridDim.x * kWarpsPerBlock;
   for (int row = warp; row < rows; row += warp_stride) {
-    const float alpha = thresholds[2 * row];
-    const float beta = thresholds[2 * row + 1];
     const size_t base = static_cast<size_t>(row) * n;
-    int carry = 0;  // escalations in the earlier chunks of this row
-    for (int c0 = 0; c0 < n; c0 += 32) {
-      const int col = c0 + lane;
-      const bool in_row = col < n;
-      const float x = in_row ? conf[base + col] : 0.0f;
-      // same comparison order as jnp.where(conf > a, 0, where(conf < b, 1, 2))
-      const int route = (x > alpha) ? 0 : ((x < beta) ? 1 : 2);
-      const bool esc = in_row && route == 2;
-      const unsigned ballot = __ballot_sync(0xffffffffu, esc);
-      const int pos = carry + __popc(ballot & lanemask_lt);
-      if (in_row) {
-        routes[base + col] = route;
-        slots[base + col] = (esc && pos < capacity) ? pos : -1;
-      }
-      carry += __popc(ballot);
-    }
-    if (lane == 0) counts[row] = carry;
+    const int count = triage_row(conf + base, routes + base, slots + base, n,
+                                 thresholds[2 * row], thresholds[2 * row + 1],
+                                 capacity);
+    if ((threadIdx.x & 31) == 0) counts[row] = count;
   }
 }
 

@@ -11,7 +11,8 @@ The bucket padding and pad sentinels are the reference's
 (min 8) and the query axis to ``bucket_q``; pad lanes carry conf/score
 -1.0 (always 'reject', never a slot; masked out of every fit), pad triage
 rows carry thresholds (1, 0), pad calibration rows truths 0, pad crop
-rows token 0.  The pads are sliced back off before returning, so padding
+rows token 0, pad crops query id -1 and threshold 2.0, pad tracks query
+id -2.  The pads are sliced back off before returning, so padding
 is invisible to callers exactly as in the reference.  The pixel kernels
 take the true frame size and need no padding.
 """
@@ -25,6 +26,7 @@ from repro_torch.kernels import calibrate as _ca
 from repro_torch.kernels import framediff as _fd
 from repro_torch.kernels import morphology as _mo
 from repro_torch.kernels import pixel_cascade as _pc
+from repro_torch.kernels import similarity as _sim
 from repro_torch.kernels import triage as _tr
 from repro_torch.kernels.runtime import resolve_device
 
@@ -206,3 +208,37 @@ def score_crops(score_fn, tokens, *, minimum: int = 8,
     n = tokens.shape[0]
     tokens = F.pad(tokens, (0, 0, 0, _bk.bucket(n, minimum) - n))
     return score_fn(tokens.to(dev))[:n]
+
+
+def associate_tracks(emb, trk, crop_q, trk_q, thr, *, device="cuda"):
+    """Fleet-wide re-ID association: ONE fused launch per scheduler tick.
+
+    ``emb`` is the (M, D) matrix of every detection-crop embedding the
+    whole fleet produced this tick (L2-normalized upstream: scores are
+    cosines) and ``trk`` the (K, D) live track table across all track
+    queries; ``crop_q`` (M,) / ``trk_q`` (K,) carry each row's query id (a
+    crop only matches tracks of its own query) and ``thr`` (M,) each
+    crop's acceptance floor.  Crops claim tracks greedily in row order,
+    one-to-one.  Returns (assign (M,) int32, the matched row of the
+    unpadded ``trk`` or -1; sim (M,) float32, the best unclaimed score the
+    crop saw, -1e30 when its query had none).
+
+    M, K and D pad to power-of-two buckets (min 8).  Pad crops carry query
+    id -1 and threshold 2.0, pad tracks query id -2, so a pad row never
+    matches or is claimed; pad crops come after the real ones, so the
+    greedy order of the real crops is unchanged."""
+    dev = resolve_device(device)
+    emb, trk, thr = _f32(emb), _f32(trk), _f32(thr)
+    crop_q = torch.as_tensor(crop_q, dtype=torch.int32)
+    trk_q = torch.as_tensor(trk_q, dtype=torch.int32)
+    M, D = emb.shape
+    K = trk.shape[0]
+    mb, kb, db = _bk.bucket(M), _bk.bucket(K), _bk.bucket(D)
+    emb = F.pad(emb, (0, db - D, 0, mb - M))
+    trk = F.pad(trk, (0, db - D, 0, kb - K))
+    crop_q = F.pad(crop_q, (0, mb - M), value=-1)
+    thr = F.pad(thr, (0, mb - M), value=2.0)
+    trk_q = F.pad(trk_q, (0, kb - K), value=-2)
+    assign, sim = _sim.associate(*(t.to(dev) for t in
+                                   (emb, trk, crop_q, trk_q, thr)))
+    return assign[:M], sim[:M]

@@ -54,6 +54,11 @@ SIGNATURES = {
     "morphology": (_P, _P, _I, _I, _I, _I, _I, _P),
     # f0, f1, f2, mask, counts; batch, h, w, threshold, maxval; stream
     "pixel_cascade": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # conf, th0, mask, drain, gains, routes, slots, ths; steps, rows, n,
+    # capacity; stream
+    "superstep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # emb, trk, crop_q, trk_q, thr, assign, sim; m, k, d; stream
+    "associate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 #: the kernels a run of the query pipeline (either frontend) can launch
 KERNELS = tuple(SIGNATURES)

@@ -2,23 +2,26 @@
 
 The port's counterpart of the reference's ``examples/run_scenarios.py``:
 the same report schema, the same ``SMOKE_OVERRIDES`` and the same
-ablation rows, limited to the presets this slice of the port runs end to
-end (``repro_torch.system.PORTED_SCENARIOS``).  Each scenario runs under
-all four query schemes; scenarios with the feedback loop on add the
-``surveiledge_no_update`` row (``update_period_s=None``), and scenarios
-with the bandwidth endgame on add ``surveiledge_fp_wire`` (full-width fp
-downlink, blocking escalation).
+ablation rows, over every preset (``repro_torch.system.PORTED_SCENARIOS``).
+Each scenario runs under all four query schemes; scenarios with the
+feedback loop on add the ``surveiledge_no_update`` row
+(``update_period_s=None``), scenarios with the bandwidth endgame on add
+``surveiledge_fp_wire`` (full-width fp downlink, blocking escalation),
+and scenarios with a track query and predictive hand-off add
+``surveiledge_no_handoff`` (hand-off off: the ID-switch ablation).
 
 ``--json-out DIR`` writes one ``<scenario>-confidence.json`` per
 scenario, which ``benchmarks/report_gate.py`` diffs against the committed
 ``reports/`` baselines (give it a baseline directory holding only the
-ported scenarios' files: a missing scenario is a breach).  The run fails
+scenarios run: a missing scenario is a breach).  The run fails
 on NaN metrics, a pipeline that answered nothing, or an internally
 inconsistent row.
 
   PYTHONPATH=src python -m repro_torch.run_scenarios --scenario all \\
       --cameras 4 --duration 30 --json-out .cache/port-reports --device cpu
   PYTHONPATH=src python -m repro_torch.run_scenarios --scenario drifting_city
+  PYTHONPATH=src python -m repro_torch.run_scenarios --scenario metropolis \\
+      --cameras 1024 --duration 12 --device cpu
   PYTHONPATH=src python -m repro_torch.run_scenarios --scenario pixel_city \\
       --duration 10 --device cpu
 """
@@ -40,17 +43,25 @@ from repro_torch.system import (
     synthetic_confidence_stream,
 )
 
-# ``--scenario all``: every ported preset at its smoke-sized operating
-# point (keys override the CLI defaults) — the settings the committed
+# ``--scenario all``: every preset at its smoke-sized operating point
+# (keys override the CLI defaults) — the settings the committed
 # ``reports/`` baselines are built from, so the report gate compares like
 # with like.
 SMOKE_OVERRIDES = {
     "city_scale": dict(duration=20.0),
+    # metropolis pins >= 1024 edges; smoke shrinks cameras/duration only.
+    # Its report rows stream (Scenario.metrics_window_s), so n_items comes
+    # from QueryReport.n_items — the per-item arrays are intentionally empty.
+    "metropolis": dict(cameras=1024, duration=12.0),
     "drifting_city": dict(cameras=8, duration=60.0),
     "multi_query_city": dict(cameras=8, duration=60.0),
     "query_churn": dict(cameras=8, duration=60.0),
     "pixel_city": dict(duration=10.0),
     "rush_hour": dict(cameras=4, duration=40.0),
+    # track presets pin their own camera/edge geometry (the CLI default of
+    # 6 cameras would break the alternating-edge chain the hand-off rides)
+    "vehicle_pursuit": dict(cameras=12, duration=60.0),
+    "crowd_flow": dict(cameras=8, duration=45.0),
 }
 #: presets that exist to exercise the pixel path run on it; the rest on
 #: the model-free confidence stream
@@ -120,6 +131,9 @@ def variants(sc):
         out.append(("surveiledge_fp_wire", dataclasses.replace(
             sc.with_scheme("surveiledge"), quantize_downlink=False,
             speculative_escalation=False)))
+    if sc.track_query_ids and sc.predictive_handoff:
+        out.append(("surveiledge_no_handoff", dataclasses.replace(
+            sc.with_scheme("surveiledge"), predictive_handoff=False)))
     return out
 
 
@@ -178,6 +192,14 @@ def run_scenario(name: str, cameras: int, duration: float, seed: int,
               f"{s['escalated']:7d}{s['reconciliation_flip_rate']:7.3f}"
               f"{s['rerouted']:9d}{s['kernel_launches']:9d}"
               f"{s['launches_per_tick']:7.2f}")
+        if s.get("track_items"):
+            print(f"   tracks: {s['tracks_born']} born, "
+                  f"continuity {s['track_continuity']:.3f} "
+                  f"({s['id_switches']} switches), "
+                  f"{s['track_handoffs']} handoffs, "
+                  f"{s['prewarm_hits']}/{s['prewarms_shipped']} "
+                  f"prewarm hits, {s['track_launches_per_tick']:.2f} "
+                  f"assoc launches/tick")
     doc = {"scenario": name, "frontend": frontend_name,
            "n_detections": len(stream), "num_edges": sc.num_edges,
            "schemes": per_scheme}
@@ -194,9 +216,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenario", choices=sorted(PORTED_SCENARIOS) + ["all"],
                     default=None,
-                    help="run one ported scenario, or 'all' for every "
-                         "ported preset with its smoke overrides (default: "
-                         "the small-fleet sweep, city_scale left out)")
+                    help="run one scenario, or 'all' for every preset with "
+                         "its smoke overrides (default: the small-fleet "
+                         "sweep, city_scale left out)")
     ap.add_argument("--json-out", metavar="DIR", default=None,
                     help="write per-scenario JSON reports to DIR and fail "
                          "on NaN/empty/inconsistent metrics")

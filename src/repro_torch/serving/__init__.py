@@ -1,2 +1,2 @@
-"""Serving layer: message bus and links, admission control, alerts, and
-the ``Item`` detection record."""
+"""Serving layer: message bus and links, admission control, alerts, the
+asyncio driver (``engine``) and the ``Item`` detection record."""

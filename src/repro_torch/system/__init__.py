@@ -3,16 +3,15 @@
 ``run_query(scenario, device="cuda")`` wires a ``Frontend`` (the
 confidence stream, or the pixel path: ONE fused pixel-cascade kernel
 launch and one CQ-classifier call per tick) -> ONE fused fleet-triage
-kernel launch per tick (per-(query, edge) adaptive thresholds) -> Eq. 7
-allocator -> per-node queues -> metrics, with the cloud->edge feedback
-loop's ONE fused calibration launch per update period.  The layers and
-presets are the reference package's (``events`` / ``transport`` /
-``nodes`` / ``triage`` / ``feedback`` / ``frontend`` /
-``pixel_frontend`` behind a slim ``pipeline`` orchestrator);
-``SCENARIOS`` keeps every preset so names resolve, and ``run_query``
-refuses with ``NotImplementedError`` the ones whose stages come in later
-slices (``metropolis``: scan supersteps; ``vehicle_pursuit``,
-``crowd_flow``: track queries).
+kernel launch per tick (per-(query, edge) adaptive thresholds), or ONE
+scan-superstep launch per boundary-free run of ticks -> Eq. 7 allocator
+-> per-node queues -> metrics, with the cloud->edge feedback loop's ONE
+fused calibration launch per update period and, for track queries, ONE
+fused association launch per tick.  The layers and presets are the
+reference package's (``events`` / ``transport`` / ``nodes`` / ``triage``
+/ ``superstep`` / ``tracks`` / ``feedback`` / ``frontend`` /
+``pixel_frontend`` behind a slim ``pipeline`` orchestrator), driven by
+``SimDriver`` or ``serving.engine.AsyncDriver``.
 """
 from repro_torch.system.feedback import FeedbackStage, apply_calibration
 from repro_torch.system.frontend import ConfidenceStreamFrontend, Frontend
@@ -43,12 +42,8 @@ from repro_torch.system.scenario import (
     vehicle_pursuit,
 )
 
-#: the presets this slice of the port runs end to end (the others need a
-#: stage that comes in a later slice and raise NotImplementedError)
-PORTED_SCENARIOS = (
-    "single_edge", "homogeneous_multi_edge", "heterogeneous_multi_edge",
-    "bursty_crowds", "straggler_edge", "city_scale", "drifting_city",
-    "multi_query_city", "query_churn", "rush_hour", "pixel_city")
+#: the presets the port runs end to end: every preset of the reference
+PORTED_SCENARIOS = tuple(SCENARIOS)
 
 __all__ = [
     "ConfidenceStreamFrontend",

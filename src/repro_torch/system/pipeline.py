@@ -35,17 +35,28 @@ and mid-run edge failures (queued work is re-dispatched, the dead edge's
 cameras re-home to survivors via Eq. 7).  Entry point unchanged:
 ``run_query(scenario) -> QueryReport``.
 
-The event loop itself sits behind a three-method seam — ``setup(items)``
-/ ``handle_event(t, ev)`` / ``finalize()`` — driven by ``SimDriver``
-(classic DES: drain the heap in time order at zero wall-clock cost).  The
-reference's asyncio ``AsyncDriver`` arrives with the real-time slice of
-the port.
+The event loop itself is a pluggable **driver** behind a three-method
+seam — ``setup(items)`` / ``handle_event(t, ev)`` / ``finalize()``:
+
+  SimDriver    (here)                  classic DES: drain the heap in
+                                       time order at zero wall-clock cost.
+                                       The default; every preset and the
+                                       superstep path run on it unchanged.
+  AsyncDriver  repro_torch.serving.engine
+                                       the same heap pumped from an
+                                       asyncio loop against a ``Clock``
+                                       (virtual for deterministic tests —
+                                       bit-identical pops to SimDriver —
+                                       or wall for real-time serving),
+                                       with ``call_at`` hooks for live
+                                       query submission (serving/api.py).
 
 Every kernel launch of a run goes to one ``device``: the card unless the
 caller asks for the CPU, where each kernel wrapper runs its plain PyTorch
-version.  Stages this slice of the port does not carry — scan supersteps
-(``Scenario.superstep``), track queries (``QuerySpec.kind == "track"``)
-and other drivers — raise ``NotImplementedError``.
+version.  ``Scenario.superstep`` fuses boundary-free runs of ticks into
+one scan-superstep launch (``system.superstep``); track queries
+(``QuerySpec.kind == "track"``) add one fused association launch per tick
+(``system.tracks``).
 
 The serving control plane rides on the seam: per-tenant admission
 (token-bucket quotas + backlog shedding, ``repro_torch.serving.api``), priority
@@ -71,6 +82,7 @@ from repro_torch.serving.simulator import Item
 from repro_torch.system import metrics as MX
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.system.events import (
+    BOUNDARY_EVENTS,
     Arrive,
     EdgeFail,
     EventQueue,
@@ -92,6 +104,8 @@ from repro_torch.system.pixel_frontend import PixelFrontend
 from repro_torch.system.nodes import NodeBank
 from repro_torch.system.queries import QuerySet, QuerySpec
 from repro_torch.system.scenario import Scenario
+from repro_torch.system.superstep import Ctrl, SuperstepDriver
+from repro_torch.system.tracks import TrackStage
 from repro_torch.system.transport import Transport
 from repro_torch.system.triage import ACCEPT, ESCALATE, TriageStage
 
@@ -130,8 +144,11 @@ def group_arrivals(items: Sequence[Item], interval_s: float
 class SimDriver:
     """Classic discrete-event driver: drain the heap in time order.
 
-    Zero wall-clock cost per event; the default for every preset and, in
-    this slice of the port, the only driver."""
+    Zero wall-clock cost per event; the default for every preset and the
+    only driver the superstep path supports.  ``AsyncDriver``
+    (``repro_torch.serving.engine``) pumps the same heap from an asyncio
+    loop — in virtual time it pops in exactly this order, which is what
+    the differential tests assert."""
 
     def drive(self, pipe: "QueryPipeline") -> None:
         while pipe.events:
@@ -142,15 +159,15 @@ class SimDriver:
 class QueryPipeline:
     """Event loop over one scenario.  Build once, ``run()`` once.
 
-    ``driver`` plugs the event-loop strategy (default ``SimDriver``); it
-    calls the ``setup`` / ``handle_event`` / ``finalize`` seam.  ``device``
+    ``driver`` plugs the event-loop strategy (default ``SimDriver``); any
+    driver calls the same ``setup`` / ``handle_event`` / ``finalize``
+    seam, so simulated and real-time runs share every handler.  ``device``
     is where every kernel launch of the run goes: the card (default; raises
     ``RuntimeError`` where torch finds none) unless the caller passes
     ``"cpu"``."""
 
     def __init__(self, sc: Scenario, driver: Optional[object] = None,
                  device="cuda"):
-        refuse_unported(sc, driver)
         self.sc = sc
         self.driver = driver
         self.device = resolve_device(device)
@@ -269,8 +286,51 @@ class QueryPipeline:
             task.tx_s += done - t
             self.events.push(done, Transfer(target, task))
 
+    # --- scan-superstep support -----------------------------------------------
+    def _sample_ctrl(self, t: float) -> None:
+        """Sample the Eqs. 8-9 / shed control signals for the superstep
+        path: the Eq. 7 escalation-target drain (incl. WAN backlog for
+        the cloud), every edge's own queue drain, and the overload-shed
+        set.  Called at the first triaged tick after each boundary event
+        (``_ctrl_dirty``) and held until the next one — the resample
+        points are boundary-determined, never K-determined, which is
+        what makes any superstep segmentation bit-exact vs. any other."""
+        try:
+            d = self.sched.select_node(
+                extra_cost={CLOUD: self.transport.wan_backlog(t)})
+        except ValueError:
+            d = CLOUD
+        esc_drain = self.sched.nodes[d].drain_time
+        if d == CLOUD:
+            esc_drain += self.transport.wan_backlog(t)
+        edge_drain = {e: self.sched.nodes[e].drain_time
+                      for e in self.sc.edge_ids}
+        self._ctrl = Ctrl(
+            esc_drain=esc_drain, edge_drain=edge_drain,
+            overloaded=frozenset(
+                e for e, dr in edge_drain.items()
+                if dr > self.sc.offload_drain_s))
+        self._ctrl_dirty = False
+
+    def _ready_of(self, batches: Dict[int, List[Item]]
+                  ) -> Dict[Tuple[int, int], List[Item]]:
+        """Pure (side-effect-free) version of ``_on_tick``'s ready
+        classification, used by the superstep planner on FUTURE ticks.
+        Everything it reads — node liveness, query liveness/retirement —
+        only mutates at boundary events, and plans never span one, so
+        the plan-time result equals the fold-time result exactly."""
+        ready: Dict[Tuple[int, int], List[Item]] = {}
+        for edge, batch in batches.items():
+            if edge in self.nodes.dead:
+                continue
+            for it in batch:
+                if self.queries.live_on(it.query, edge):
+                    ready.setdefault((it.query, edge), []).append(it)
+        return ready
+
     # --- per-tick fused triage ------------------------------------------------
-    def _on_tick(self, t: float, batches: Dict[int, List[Item]]) -> None:
+    def _on_tick(self, t: float, batches: Dict[int, List[Item]],
+                 tick: int = -1) -> None:
         """One scheduler tick's arrivals: failover dead edges' batches,
         defer queries whose CQ weights haven't reached their edge yet, shed
         overloaded edges' raw batches via Eq. 7, triage everything else —
@@ -299,6 +359,23 @@ class QueryPipeline:
                 live[edge] = batch
         if not live:
             return
+        if self.track is not None:
+            # cross-camera association: every live track query's embedded
+            # detections, fleet-wide, in ONE fused similarity launch per
+            # tick (same launch budget discipline as triage).  Runs before
+            # the edge_only split so both cascade and edge_only schemes
+            # track; cloud_only has no ticks, so it never associates.
+            tb: Dict[Tuple[int, int], List[Item]] = {}
+            for edge, batch in live.items():
+                for it in batch:
+                    if (it.query in self._track_qs
+                            and it.emb is not None
+                            and not self.queries.is_shed(it.query)
+                            and self.queries.live_on(it.query, edge)):
+                        tb.setdefault((it.query, edge), []).append(it)
+            if tb:
+                for done, upd in self.track.tick(t, tb):
+                    self.events.push(done, upd)
         if self.sc.scheme == "edge_only":
             for edge, batch in live.items():
                 for it in batch:
@@ -331,37 +408,68 @@ class QueryPipeline:
         if not ready:
             return
         self._triaged_ticks += 1
-        self.triage_stage.refresh(t, sorted(ready))
-        if self.sc.scheme == "surveiledge":
-            for q, e in ready:
-                st = self.triage_stage.states[(q, e)]
-                tag = f"{e}" if q == self.queries.default \
-                    else f"{e}q{q}"
-                self.db.put(f"alpha{tag}", st.alpha)
-                self.db.put(f"beta{tag}", st.beta)
-            # a home edge that can't drain its queue within the gate
-            # sheds this tick's raw batch — every query's — across
-            # cloud/edges via Eq. 7 (the overloaded home has maximal
-            # Q*t, so it is effectively skipped)
-            overloaded = {e for _, e in ready
-                          if self.sched.nodes[e].drain_time
-                          > self.sc.offload_drain_s}
-            for key in [k for k in ready if k[1] in overloaded]:
-                shed = ready.pop(key)
-                self.bus.publish(
-                    f"alerts/edge{key[1]}/shed_batch",
-                    dict(t=t, query=key[0], items=len(shed)))
-                for it in shed:
-                    self._rerouted += 1
-                    self._dispatch(t, key[1],
-                                   Task(it, "reclassify", None),
-                                   count_escalated=False,
-                                   exclude_src=True)
-            if self.sc.alert_threshold_drift is not None:
-                self._check_drift(t, ready)
+        if self.superstep.enabled:
+            # scan-superstep path: this tick's routes/thresholds come out
+            # of ONE fused multi-tick launch (built now if this tick
+            # wasn't covered by a previous plan).  Control signals are
+            # boundary-held: resampled at the first triaged tick after
+            # each boundary event, constant in between.
+            if self._ctrl_dirty:
+                self._sample_ctrl(t)
+            outs, ths = self.superstep.tick_out(tick, ready, self._ctrl)
+            if self.sc.scheme == "surveiledge":
+                for q, e in ready:
+                    a, b = ths[(q, e)]
+                    tag = f"{e}" if q == self.queries.default \
+                        else f"{e}q{q}"
+                    self.db.put(f"alpha{tag}", a)
+                    self.db.put(f"beta{tag}", b)
+                for key in [k for k in ready
+                            if k[1] in self._ctrl.overloaded]:
+                    shed = ready.pop(key)
+                    self.bus.publish(
+                        f"alerts/edge{key[1]}/shed_batch",
+                        dict(t=t, query=key[0], items=len(shed)))
+                    for it in shed:
+                        self._rerouted += 1
+                        self._dispatch(t, key[1],
+                                       Task(it, "reclassify", None),
+                                       count_escalated=False,
+                                       exclude_src=True)
+        else:
+            self.triage_stage.refresh(t, sorted(ready))
+            if self.sc.scheme == "surveiledge":
+                for q, e in ready:
+                    st = self.triage_stage.states[(q, e)]
+                    tag = f"{e}" if q == self.queries.default \
+                        else f"{e}q{q}"
+                    self.db.put(f"alpha{tag}", st.alpha)
+                    self.db.put(f"beta{tag}", st.beta)
+                # a home edge that can't drain its queue within the gate
+                # sheds this tick's raw batch — every query's — across
+                # cloud/edges via Eq. 7 (the overloaded home has maximal
+                # Q*t, so it is effectively skipped)
+                overloaded = {e for _, e in ready
+                              if self.sched.nodes[e].drain_time
+                              > self.sc.offload_drain_s}
+                for key in [k for k in ready if k[1] in overloaded]:
+                    shed = ready.pop(key)
+                    self.bus.publish(
+                        f"alerts/edge{key[1]}/shed_batch",
+                        dict(t=t, query=key[0], items=len(shed)))
+                    for it in shed:
+                        self._rerouted += 1
+                        self._dispatch(t, key[1],
+                                       Task(it, "reclassify", None),
+                                       count_escalated=False,
+                                       exclude_src=True)
+                if self.sc.alert_threshold_drift is not None:
+                    self._check_drift(t, ready)
+            if not ready:
+                return
+            outs = self.triage_stage.triage_tick(ready)
         if not ready:
             return
-        outs = self.triage_stage.triage_tick(ready)
         sc_spec = self.sc.speculative_escalation
         for (q, edge), items in ready.items():
             routes, slots, conf_used = outs[(q, edge)]
@@ -511,6 +619,13 @@ class QueryPipeline:
                                         self.device)
         self.feedback = FeedbackStage(sc, self.transport, self.device)
         self.queries = QuerySet(sc)
+        # cross-camera track queries: the fleet-wide track registry exists
+        # only when a track-kind query does (classify-only runs carry zero
+        # extra state and stay bit-identical)
+        self._track_qs = {q for q, sp in self.queries.specs.items()
+                          if sp.kind == "track"}
+        self.track = TrackStage(sc, self.transport, self.device) \
+            if self._track_qs else None
         self._lat: List[float] = []
         self._dec: List[bool] = []
         self._tru: List[bool] = []
@@ -556,7 +671,14 @@ class QueryPipeline:
         # report arrays stay empty and _finish folds into O(window) cells
         self._agg = MX.StreamingWindows(sc.metrics_window_s) \
             if sc.metrics_window_s is not None else None
+        # scan-superstep driver (Scenario.superstep): fuses boundary-free
+        # runs of ticks into one scan + triage kernel launch
+        self.superstep = SuperstepDriver(self)
+        self._ctrl: Optional[Ctrl] = None
+        self._ctrl_dirty = True
         self._triaged_ticks = 0
+        self._tick_batches: Dict[int, Dict[int, List[Item]]] = {}
+        self._tick_order: List[int] = []
 
         # an item tagged with an undeclared query would defer forever (no
         # lifecycle events ever activate it) and silently vanish from the
@@ -581,6 +703,10 @@ class QueryPipeline:
             for k, batches in group_arrivals(items, sc.interval_s):
                 self.events.push((k + 1) * sc.interval_s,
                                  TickArrivals(batches, k))
+                # kept (sorted) for the superstep planner, which packs
+                # future arrival ticks into the current fused launch
+                self._tick_batches[k] = batches
+                self._tick_order.append(k)
         for k in range(1, n_ticks + 1):
             self.events.push(k * sc.interval_s, Sample())
         for t_fail, node in sc.failures:
@@ -602,8 +728,15 @@ class QueryPipeline:
     def handle_event(self, t: float, ev: object) -> None:
         """Apply ONE event.  Drivers own the loop (SimDriver drains the
         heap; AsyncDriver pumps it from asyncio); this owns the physics —
-        every driver funnels through here."""
+        every driver funnels through here, which is what makes the
+        sim-vs-async differential tests meaningful."""
         sc = self.sc
+        if isinstance(ev, BOUNDARY_EVENTS):
+            # boundary events mutate state the fused superstep math
+            # reads: the boundary-held control signals resample at
+            # the next triaged tick (and plans never span this pop —
+            # the planner stopped strictly before it)
+            self._ctrl_dirty = True
         if isinstance(ev, Sample):
             self._tick_samples.append({
                 n: self.nodes.occupancy(n) for n in self.service_s})
@@ -622,7 +755,7 @@ class QueryPipeline:
             task.tx_s = done - t
             self.events.push(done, Transfer(CLOUD, task))
         elif isinstance(ev, TickArrivals):
-            self._on_tick(t, ev.batches)
+            self._on_tick(t, ev.batches, ev.tick)
         elif isinstance(ev, Transfer):
             if ev.node in self.nodes.dead:   # died while in transit
                 self._rerouted += 1
@@ -655,6 +788,9 @@ class QueryPipeline:
             self.queries.retire(ev.query)
             self.triage_stage.retire_query(ev.query)
             self.feedback.retire_query(ev.query)
+            if self.track is not None:
+                # the query's fleet-wide track table dies with it
+                self.track.retire_query(ev.query)
             # stragglers still waiting for weights are answered with
             # the pre-trained prior; in-flight escalations complete
             # normally and are still counted
@@ -667,7 +803,7 @@ class QueryPipeline:
             # only fires a launch if this tick boundary had no natural
             # TickArrivals (which would have absorbed the release)
             if self._release:
-                self._on_tick(t, {})
+                self._on_tick(t, {}, ev.tick)
         elif isinstance(ev, FeedbackTick):
             # one fused fleet recalibration launch; the per-row
             # results land as ModelUpdate events at downlink delivery
@@ -687,6 +823,15 @@ class QueryPipeline:
                         (math.floor(t / sc.interval_s) + 1)
                         * sc.interval_s,
                         ReleaseTick(int(math.floor(t / sc.interval_s))))
+            elif ev.kind == "prewarm":
+                # predictive hand-off delivered: the edge holds the
+                # query's track state hot for prewarm_ttl_s.  A late
+                # delivery (target already arrived cold) simply misses —
+                # that is the stale-in-flight cost the ablation measures.
+                if ev.edge not in self.nodes.dead \
+                        and not self.queries.is_retired(ev.query) \
+                        and self.track is not None:
+                    self.track.apply_prewarm(t, ev.query, ev.edge)
             elif ev.edge not in self.nodes.dead \
                     and not self.queries.is_retired(ev.query):
                 # a calibration that retired mid-flight must not undo
@@ -740,14 +885,16 @@ class QueryPipeline:
         """Admit a runtime-submitted query into every stage's state
         (serving/api.py's ``QueryAPI.submit`` calls this, then pushes the
         ``QueryArrival`` event that starts the lifecycle)."""
-        if sp.kind == "track":
-            raise NotImplementedError(_TRACK_MSG)
         self.queries.register(sp)
         self._tier_of[sp.query] = sp.tier
         tsp = self._tiers.get(sp.tier)
         self.triage_stage.add_query(sp.query,
                                     tsp.weight if tsp is not None else 0.0)
         self.feedback.add_query(sp.query)
+        if sp.kind == "track":
+            self._track_qs.add(sp.query)
+            if self.track is None:
+                self.track = TrackStage(self.sc, self.transport, self.device)
 
     def finalize(self) -> MX.QueryReport:
         """Assemble the QueryReport once the driver has drained the run."""
@@ -780,6 +927,20 @@ class QueryPipeline:
                     "slo_s": self._tiers[k].slo_s,
                     "slo_breaches": self._tier_breach[k],
                 }
+        # cross-camera track accounting (absent -> zeros, summary stays
+        # schema-identical for classify-only runs)
+        trk = self.track
+        track_kwargs = dict(
+            track_items=trk.items,
+            tracks_born=trk.tracks_born,
+            track_matches=trk.matches,
+            id_switches=trk.id_switches,
+            track_opportunities=trk.opportunities,
+            track_handoffs=trk.handoffs,
+            prewarms_shipped=trk.prewarms,
+            prewarm_hits=trk.prewarm_hits,
+            track_launches=trk.launches,
+        ) if trk is not None else {}
         return MX.QueryReport(
             scenario=sc.name,
             scheme=sc.scheme,
@@ -804,7 +965,7 @@ class QueryPipeline:
             escalated=self._escalated,
             rerouted=self._rerouted,
             kernel_launches=self.triage_stage.launches,
-            supersteps=0,
+            supersteps=self.superstep.supersteps,
             triaged_ticks=self._triaged_ticks,
             stream=self._agg,
             ticks=self._n_ticks,
@@ -814,7 +975,9 @@ class QueryPipeline:
             thresholds=self.triage_stage.final_thresholds()
             if sc.scheme in ("surveiledge", "surveiledge_fixed") else {},
             stage_timings={**(self._frontend_timings or {}),
-                           "triage_s": self.triage_stage.elapsed_s},
+                           "triage_s": self.triage_stage.elapsed_s,
+                           **({"associate_s": trk.elapsed_s}
+                              if trk is not None else {})},
             alerts=self.alerts.snapshot(),
             submitted_queries=self._submitted,
             shed_queries=self._shed_queries,
@@ -822,6 +985,7 @@ class QueryPipeline:
             tier_latency=tier_rows,
             edge_health={e: self.alerts.health_snapshot(e)
                          for e in sc.edge_ids},
+            **track_kwargs,
         )
 
     def run(self, items: Sequence[Item],
@@ -831,29 +995,6 @@ class QueryPipeline:
         self.setup(items, frontend_timings)
         (self.driver or SimDriver()).drive(self)
         return self.finalize()
-
-
-_SUPERSTEP_MSG = (
-    "Scenario.superstep (scan supersteps, the metropolis preset) comes with "
-    "the scan-superstep slice of the PyTorch port; run with superstep=None")
-_TRACK_MSG = (
-    "track queries (QuerySpec.kind == 'track') come with the track-query "
-    "slice of the PyTorch port")
-_DRIVER_MSG = (
-    "only SimDriver is ported; the asyncio AsyncDriver comes with the "
-    "real-time slice of the PyTorch port")
-
-
-def refuse_unported(sc: Scenario, driver: Optional[object] = None) -> None:
-    """Raise ``NotImplementedError`` for a stage this slice does not carry
-    (never fall back to the reference package)."""
-    if sc.superstep is not None:
-        raise NotImplementedError(f"scenario {sc.name!r}: {_SUPERSTEP_MSG}")
-    if any(sp.kind == "track" for sp in sc.queries):
-        raise NotImplementedError(f"scenario {sc.name!r}: {_TRACK_MSG}")
-    if driver is not None and not isinstance(driver, SimDriver):
-        raise NotImplementedError(
-            f"driver {type(driver).__name__}: {_DRIVER_MSG}")
 
 
 def run_query(scenario: Scenario, *,
@@ -880,7 +1021,11 @@ def run_query(scenario: Scenario, *,
     runs the hand-written kernels on the card and raises ``RuntimeError``
     where torch finds none; ``"cpu"`` runs their plain PyTorch versions.
 
-    ``driver`` selects the event-loop strategy: None or ``SimDriver``.
+    ``driver`` selects the event-loop strategy: None/``SimDriver`` for the
+    classic DES, or ``repro_torch.serving.engine.AsyncDriver`` to pump the
+    same events from asyncio (virtual or wall clock) — the real-time
+    serving mode with live query submission
+    (``repro_torch.serving.api.QueryAPI``).
     """
     if isinstance(frontend, str):
         if frontend == "pixel":
@@ -899,7 +1044,6 @@ def run_query(scenario: Scenario, *,
     elif items is not None:
         raise ValueError("pass either items= or frontend=, not both "
                          "(a custom frontend produces its own stream)")
-    refuse_unported(scenario, driver)
     pipe = QueryPipeline(scenario, driver=driver, device=resolve_device(device))
     return pipe.run(frontend.stream(scenario),
                     frontend_timings=frontend.timings)

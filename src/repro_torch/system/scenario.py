@@ -167,13 +167,12 @@ class Scenario:
     # overload-shedding gate are sampled once per host event boundary (query
     # lifecycle, failures, model deliveries, feedback ticks) and held
     # constant between boundaries, which makes results invariant to K — up
-    # to K consecutive ticks then fuse into ONE jitted lax.scan superstep
+    # to K consecutive ticks then fuse into ONE superstep kernel launch
     # (system/superstep.py).  K=1 is the same semantics driven tick by tick:
     # the differential harness proves K=1 == K=N bit-exactly.
     superstep: Optional[int] = None
-    # shard the superstep's folded row axis across devices (no-op on a
-    # single device; exercised on CPU via
-    # XLA_FLAGS=--xla_force_host_platform_device_count=8)
+    # shard the superstep's folded row axis across devices; the port
+    # accepts it and runs the one launch on one device
     shard_fleet: bool = False
     # accumulate the report in streaming windowed aggregates of this width
     # instead of O(items) per-item arrays (system/metrics.py); None keeps
@@ -627,11 +626,10 @@ def metropolis(num_cameras: int = 10240, num_edges: int = 1024,
 
     The floors are pinned like ``city_scale``'s: >= 1024 edges, and at
     least one camera per edge.  Runs with ``superstep=128`` (boundary-free
-    tick runs fuse into ONE jitted ``lax.scan`` superstep each),
-    ``shard_fleet=True`` (the folded row axis splits across whatever
-    devices exist — a no-op on one device), and streaming windowed report
-    aggregates (``metrics_window_s``) so report memory is O(windows), not
-    O(items).
+    tick runs fuse into ONE superstep kernel launch each),
+    ``shard_fleet=True`` (accepted; one launch on one device), and
+    streaming windowed report aggregates (``metrics_window_s``) so report
+    memory is O(windows), not O(items).
 
     The workload shape is chosen so boundary events cluster in the opening
     act: every query registers within the first 2% of the run (city

@@ -15,7 +15,8 @@ sys.path.insert(0, str(ROOT / "benchmarks"))
 from report_gate import compare_report  # noqa: E402
 
 
-@pytest.mark.parametrize("name", ["single_edge", "drifting_city"])
+@pytest.mark.parametrize("name", ["single_edge", "drifting_city",
+                                  "vehicle_pursuit"])
 def test_port_report_passes_gate_against_baseline(tmp_path, name):
     ov = RS.SMOKE_OVERRIDES.get(name, {})
     RS.run_scenario(name, ov.get("cameras", 4), ov.get("duration", 30.0), 0,
@@ -30,16 +31,13 @@ def test_port_report_passes_gate_against_baseline(tmp_path, name):
         assert set(fresh["schemes"][row]) == set(want)
 
 
-def test_runner_cli_refuses_unported_scenarios(capsys):
-    with pytest.raises(SystemExit):
-        RS.main(["--scenario", "metropolis", "--device", "cpu"])
-    assert "invalid choice" in capsys.readouterr().err
-
-
 def test_runner_rows_follow_the_scenario_knobs():
-    from repro_torch.system import drifting_city, single_edge
+    from repro_torch.system import (drifting_city, single_edge,
+                                    vehicle_pursuit)
     assert [r for r, _ in RS.variants(single_edge())] == \
         ["surveiledge", "surveiledge_fixed", "edge_only", "cloud_only"]
     rows = [r for r, _ in RS.variants(drifting_city())]
     assert rows[-2:] == ["surveiledge_no_update", "surveiledge_fp_wire"]
+    rows = [r for r, _ in RS.variants(vehicle_pursuit())]
+    assert rows[-1] == "surveiledge_no_handoff"
     assert os.path.basename(RS.__file__) == "run_scenarios.py"
