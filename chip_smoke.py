@@ -21,7 +21,11 @@ Phases, each fatal on failure:
    — the metropolis cap slab among them — with masks all off and all on,
    drains on both sides of the interval and capacity overflow; the track
    association at the reference test's shapes, K = 0, an all-masked query
-   and a tie, ``assign`` exactly and ``sim`` within ``SIM_ATOL``;
+   and a tie, ``assign`` exactly and ``sim`` within ``SIM_ATOL``; flash
+   attention, causal and not, within ``FLASH_ATOL`` at ``FLASH_SHAPES``
+   (the reference test's, Sq 64 against Sk 256, Sq = Sk = 1000, head dims
+   16 to 256, qwen1.5-0.5b's and qwen3-8b's prefill) and in bf16, and on
+   the model's (B, S, H, hd) views;
 4. the main path: ``run_query(city_scale(), device="cuda")`` at full size
    (64 edges, 512 cameras, 60 s) with the launch counters zeroed just
    before and read just after; the same run with ``device="cpu"`` must
@@ -53,7 +57,16 @@ Phases, each fatal on failure:
    equal to the CPU's, fewer ID switches than the ``predictive_handoff=
    False`` ablation, and ``AsyncDriver(VirtualClock())`` identical to
    ``SimDriver`` on ``vehicle_pursuit``;
-9. time each kernel and its plain version on the inputs the main paths
+9. the serving path: ``CascadeServer`` with full-width qwen1.5-0.5b (24
+   layers, ~464M parameters, ``attn_impl="flash"``) as the cloud model
+   behind its edge variant, 16 prompts of 64 to 1,024 tokens, 16 new
+   tokens each, 8 slots, thresholds that answer six at the edge: flash
+   launches must equal 24 x cloud prefills; routes and tokens must equal
+   the same run's under ``attn_impl="chunked"`` on the card, and, at
+   ``num_layers=2``, the host's, a token differing only after a step
+   whose top-2 margin is below ``LOGIT_ATOL``, prefill logits within it.
+   Prints prefill and decode tokens/s and the edge/cloud split;
+10. time each kernel and its plain version on the inputs the main paths
    gave it (the pixel kernels also at 1080p), and print
    ``{"kernels": [...]}`` (per kernel: launches per path, max error
    against the plain version, kernel/plain ms with the stream pre-loaded,
@@ -139,6 +152,33 @@ METRO_SMOKE = dict(num_cameras=1024, duration_s=12.0)
 #: seconds into the script after which the host's full-fleet metropolis
 #: run (a comparison, ~1.5 minutes) is skipped to stay inside the limit
 HOST_METRO_BUDGET_S = 420.0
+#: flash attention vs its plain version on the card (the reference test's
+#: tolerances, as atol and rtol): the same f32 function with the sums in
+#: another order; bf16 rounds the output
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: (B, H, KV, Sq, Sk, hd): ``tests/test_flash_attention.py``'s shapes, a
+#: query chunk against a longer cache, non-tile lengths, the head dims of
+#: the other tilings, qwen1.5-0.5b's 1,024-token prefill and qwen3-8b's
+#: GQA prefill
+FLASH_SHAPES = [(1, 2, 2, 128, 128, 32), (2, 4, 2, 256, 256, 64),
+                (1, 8, 2, 128, 128, 32), (1, 2, 1, 192, 192, 16),
+                (1, 4, 4, 64, 256, 32), (1, 4, 2, 1000, 1000, 64),
+                (1, 2, 2, 300, 300, 96), (1, 2, 1, 130, 130, 256),
+                (1, 16, 16, 1024, 1024, 64), (1, 32, 8, 2048, 2048, 128)]
+FLASH_BF16_SHAPES = [(1, 2, 2, 128, 128, 32), (1, 16, 16, 1024, 1024, 64)]
+#: the serving phase: requests, their prompt lengths, decode steps, slots
+SERVE_REQUESTS = 16
+SERVE_LENGTHS = (64, 1024)
+SERVE_NEW = 16
+SERVE_SLOTS = 8
+#: decode ticks timed on the host clock, then as many under the profiler
+DECODE_TICKS = 8
+#: logits tolerance between two serving runs that differ only in the
+#: attention path (flash vs chunked on the card) or the device (card vs
+#: host at cut depth): f32 everywhere, TF32 off, the sums in another
+#: order; the logits have a standard deviation near 1.  A greedy token may
+#: differ only after a step whose top-2 margin in the plain run is below it
+LOGIT_ATOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -536,6 +576,166 @@ def check_associate(torch, F, SIM, ops, dev) -> None:
           f"tie; sim within {err:.3g}", flush=True)
 
 
+def qkv(torch, g, shape, dtype, dev):
+    B, H, KV, Sq, Sk, hd = shape
+    return [torch.randn(sh, generator=g).to(dtype).to(dev)
+            for sh in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd))]
+
+
+def flash_diff(torch, FA, q, k, v, causal: bool) -> float:
+    """Max |kernel - plain|; fails outside the dtype's tolerance."""
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_torch(q, k, v, causal)
+    tol = FLASH_ATOL[str(q.dtype).split(".")[1]]
+    if got.dtype != q.dtype or got.shape != q.shape:
+        fail(f"flash_attention gave {got.dtype} {tuple(got.shape)} for "
+             f"{q.dtype} {tuple(q.shape)}")
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"flash_attention differs from its plain version at q "
+             f"{tuple(q.shape)} k {tuple(k.shape)} {q.dtype} causal="
+             f"{causal}: max err {float((got.float() - want.float()).abs().max())}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_flash(torch, FA, dev) -> None:
+    g = torch.Generator(device="cpu").manual_seed(4)
+    errs = {}
+    for dtype, shapes in ((torch.float32, FLASH_SHAPES),
+                          (torch.bfloat16, FLASH_BF16_SHAPES)):
+        for shape in shapes:
+            q, k, v = qkv(torch, g, shape, dtype, dev)
+            for causal in (True, False):
+                errs[(str(dtype), shape, causal)] = flash_diff(
+                    torch, FA, q, k, v, causal)
+    # the model's layout: a transposed (B, S, H, hd) view goes in as it is
+    q, k, v = qkv(torch, g, FLASH_SHAPES[5], torch.float32, dev)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    if not torch.equal(FA.flash_attention(*views), FA.flash_attention(q, k, v)):
+        fail("flash_attention on (B, S, H, hd) views differs from the "
+             "contiguous input")
+    for dt in ("torch.float32", "torch.bfloat16"):
+        worst = max((e, key) for key, e in errs.items() if key[0] == dt)
+        print(f"flash_attention {dt}: within {FLASH_ATOL[dt[6:]]} at "
+              f"{sum(key[0] == dt for key in errs)} (shape, causal) cases, "
+              f"max err {worst[0]:.3g} at {worst[1][1:]}", flush=True)
+
+
+def flash_bound_ms(shape, nbytes_el: int, causal: bool = True) -> tuple:
+    """Least time for one attention call: 4 operations per (query, visible
+    key, head-dim lane) — QK^T and PV — over the f32 rate, or q, k, v and
+    o moved once over HBM, whichever is larger."""
+    B, H, KV, Sq, Sk, hd = shape
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    ops = 4 * B * H * hd * pairs
+    nbytes = (2 * B * H * Sq + 2 * B * KV * Sk) * hd * nbytes_el
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+class ServeTap:
+    """Wraps one ``CascadeServer``'s engine for a run: per request the
+    prefill logits and the top-2 logit margin of every greedy step (the
+    prefill's, then one a decode tick), and the seconds and tokens of
+    prefill (admissions) and decode (ticks).  ``admit`` and ``step``
+    already wait for the device (they read the argmax back)."""
+
+    def __init__(self, torch, TR, engine):
+        self.torch, self.TR, self.engine = torch, TR, engine
+        self.logits, self.margins = {}, {}
+        self.prefill_s = self.decode_s = 0.0
+        self.prefill_tokens = self.decode_tokens = self.prefills = 0
+
+    def margin(self, logits):
+        top = self.torch.topk(logits.float(), 2, dim=-1).values
+        return (top[..., 0] - top[..., 1]).tolist()
+
+    def __enter__(self):
+        TR, eng = self.TR, self.engine
+        self.orig = (TR.prefill, TR.decode_step)
+        admit, step, last = eng.admit, eng.step, {}
+
+        def prefill(*a, **kw):
+            out = self.orig[0](*a, **kw)
+            last["prefill"] = out[0]
+            return out
+
+        def decode(*a, **kw):
+            out = self.orig[1](*a, **kw)
+            last["decode"] = out[0]
+            return out
+
+        def timed_admit(req):
+            t0 = time.perf_counter()
+            ok = admit(req)
+            self.prefill_s += time.perf_counter() - t0
+            if ok:
+                self.prefills += 1
+                self.prefill_tokens += len(req.tokens)
+                self.logits[req.rid] = last["prefill"][0].float().cpu()
+                self.margins[req.rid] = self.margin(last["prefill"][0:1])
+            return ok
+
+        def timed_step():
+            rids = [s.rid for s in eng.slots]
+            t0 = time.perf_counter()
+            done = step()
+            self.decode_s += time.perf_counter() - t0
+            for rid, m in zip(rids, self.margin(last["decode"])):
+                if rid >= 0:
+                    self.margins[rid].append(m)
+                    self.decode_tokens += 1
+            return done
+
+        TR.prefill, TR.decode_step = prefill, decode
+        eng.admit, eng.step = timed_admit, timed_step
+        return self
+
+    def __exit__(self, *exc):
+        self.TR.prefill, self.TR.decode_step = self.orig
+        del self.engine.admit, self.engine.step
+
+
+def same_serving(what: str, got: dict, want: dict, got_tap, want_tap) -> dict:
+    """Routes equal; a cloud request's tokens equal up to the first step
+    whose top-2 margin in the plain run (``want``) is below
+    ``LOGIT_ATOL``, where a flip is allowed; prefill logits within
+    ``LOGIT_ATOL``.  Returns what was compared."""
+    if sorted(got) != sorted(want):
+        fail(f"{what}: answered requests {sorted(got)} vs {sorted(want)}")
+    ties, logit_err = [], 0.0
+    for rid in sorted(want):
+        g, w = got[rid], want[rid]
+        if g.route != w.route:
+            fail(f"{what}: request {rid} routed {g.route} vs {w.route}")
+        go, wo = list(g.output), list(w.output)
+        if w.route == "cloud":
+            logit_err = max(logit_err, float(
+                (got_tap.logits[rid] - want_tap.logits[rid]).abs().max()))
+        if go == wo:
+            continue
+        k = next((i for i, (a, b) in enumerate(zip(go, wo)) if a != b),
+                 min(len(go), len(wo)))
+        margin = want_tap.margins[rid][k] if w.route == "cloud" and \
+            k < len(want_tap.margins[rid]) else float("inf")
+        print(f"{what}: request {rid} first differs at step {k}: {go[k:k+3]}"
+              f" vs {wo[k:k+3]}, top-2 margin {margin:.3g} in the plain run",
+              flush=True)
+        if len(go) != len(wo) or not margin < LOGIT_ATOL:
+            fail(f"{what}: request {rid} tokens differ at step {k} where the "
+                 f"plain run's top-2 margin {margin} is not below "
+                 f"{LOGIT_ATOL}")
+        ties.append((rid, k, margin))
+    if not logit_err <= LOGIT_ATOL:
+        fail(f"{what}: prefill logits differ by {logit_err} > {LOGIT_ATOL}")
+    min_margin = min(m for rid, ms in want_tap.margins.items() for m in ms)
+    print(f"{what}: same routes and tokens ({len(ties)} near-tie flips), "
+          f"prefill logits within {logit_err:.3g}, smallest top-2 margin "
+          f"{min_margin:.3g}", flush=True)
+    return {"prefill_logits_max_abs_err": logit_err, "near_tie_flips": ties,
+            "min_top2_margin": min_margin}
+
+
 class TickAudit:
     """Wraps ``TrackStage.tick`` to check the launch budget tick by tick:
     exactly one associate launch where the tick has crops and a live
@@ -657,6 +857,185 @@ def time_pixel_kernels(torch, F, FD, MO, PC, dev, recorders: dict,
     return out
 
 
+def decode_tick_trace(torch, cfg, params, prompts) -> dict:
+    """Where a decode tick's time goes: a ``DecodeEngine`` with every slot
+    filled, two warm-up ticks, ``DECODE_TICKS`` ticks on the host clock,
+    then as many under ``torch.profiler``.  The device is busy for the
+    union of its kernel, copy and memset intervals; the idle share is the
+    rest of the unprofiled tick.  The bound is the larger of the tick's
+    bytes (every weight and the whole K/V cache read once) over the HBM
+    rate and its FLOPs (the GEMMs, and attention over the whole cache) over
+    the f32 rate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import meta as M
+    from repro_torch.serving.engine import DecodeEngine, Request
+    n, W = DECODE_TICKS, SERVE_LENGTHS[1] + SERVE_NEW
+    eng = DecodeEngine(cfg, params, slots=SERVE_SLOTS, cache_len=W,
+                       device="cuda")
+    for i, p in enumerate(prompts[:SERVE_SLOTS]):
+        if not eng.admit(Request(rid=i, tokens=p, max_new=4 * n)):
+            fail("decode trace: a slot was not free")
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / n
+    if eng.active != SERVE_SLOTS:
+        fail(f"decode trace: {eng.active} of {SERVE_SLOTS} slots active")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    n_params = sum(t.numel() for _, t in M.leaves(params))
+    cache_el = 2 * cfg.num_layers * SERVE_SLOTS * W * cfg.num_kv_heads * \
+        cfg.head_dim
+    t_b = 4 * (n_params + cache_el) / HBM_BYTES_S
+    t_o = (2 * n_params * SERVE_SLOTS + 4 * cfg.num_layers * SERVE_SLOTS *
+           cfg.num_heads * W * cfg.head_dim) / F32_FLOP_S
+    busy_ms = busy_us / 1e3 / n if spans else None
+    row = {"slots": SERVE_SLOTS, "cache_len": W, "ticks": n,
+           "wall_ms_per_tick": wall_ms,
+           "profiled_wall_ms_per_tick": profiled_ms,
+           "device_busy_ms_per_tick": busy_ms,
+           "device_ops_per_tick": len(spans) / n,
+           "idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+           "bound_ms_per_tick": max(t_b, t_o) * 1e3,
+           "bound_by": "bytes" if t_b >= t_o else "operations"}
+    print(f"decode tick ({cfg.num_layers} layers, {SERVE_SLOTS} slots): "
+          f"{json.dumps(row)}" + ("" if spans else
+                                  "; device busy time not measured: the "
+                                  "profiler recorded no device events"),
+          flush=True)
+    del eng
+    return row
+
+
+def serving_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 9: ``CascadeServer`` on full-width qwen1.5-0.5b (24 layers,
+    ``attn_impl="flash"``) behind its edge variant, ``SERVE_REQUESTS``
+    prompts; against the same run under ``"chunked"`` on the card, and at
+    ``num_layers=2`` against the host."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import cascade as CC
+    from repro_torch.core.thresholds import ThresholdState
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import meta as M
+    from repro_torch.models import transformer as TR
+    from repro_torch.serving.engine import CascadeServer, Request
+    t_phase = time.perf_counter()
+    full = get_config("qwen1.5-0.5b")
+    cloud_cfg = dataclasses.replace(full, attn_impl="flash")
+    edge_cfg = full.edge_variant()
+    if (cloud_cfg.num_layers, cloud_cfg.d_model, cloud_cfg.num_heads,
+            cloud_cfg.num_kv_heads, cloud_cfg.head_dim, cloud_cfg.d_ff,
+            cloud_cfg.vocab_size) != (24, 1024, 16, 16, 64, 2816, 151936):
+        fail(f"qwen1.5-0.5b is not at full width: {cloud_cfg}")
+    t0 = time.perf_counter()
+    cloud = M.tree_map(lambda t: t.to(dev), M.init_params(
+        cloud_cfg, torch.Generator().manual_seed(0)))
+    edge = M.init_params(edge_cfg, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in M.leaves(cloud))
+    g = torch.Generator().manual_seed(5)
+    lo, hi = SERVE_LENGTHS
+    lengths = torch.randint(lo, hi + 1, (SERVE_REQUESTS,), generator=g)
+    lengths[0], lengths[1] = hi, lo
+    prompts = [torch.randint(0, edge_cfg.vocab_size, (int(n),), generator=g)
+               .to(torch.int32).numpy() for n in lengths]
+    # thresholds halfway between the host's edge confidences: three
+    # requests accepted and three rejected at the edge, ten to the cloud
+    with torch.no_grad():
+        conf = sorted(float(CC.confidence_from_logits(TR.classify(
+            edge_cfg, edge, TR.forward(edge_cfg, edge, torch.as_tensor(
+                p).long()[None])))[0]) for p in prompts)
+    gaps = (conf[-3] - conf[-4], conf[3] - conf[2])
+    if not min(gaps) > 1e-3:
+        fail(f"edge confidences too close to split robustly: {conf}")
+    th = dict(alpha=(conf[-4] + conf[-3]) / 2, beta=(conf[2] + conf[3]) / 2)
+
+    def serve(cfg, params, device, record=None):
+        srv = CascadeServer(edge_cfg, edge, cfg, params, slots=SERVE_SLOTS,
+                            cache_len=hi + SERVE_NEW, device=device,
+                            thresholds=ThresholdState(**th))
+        reqs = [Request(rid=i, tokens=p, max_new=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        with ServeTap(torch, TR, srv.engine) as tap:
+            zero_counts()
+            t0 = time.perf_counter()
+            res = srv.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        del srv
+        routes = [res[i].route for i in range(len(prompts))]
+        n_cloud = routes.count("cloud")
+        row = {"wall_s": wall, "prefill_s": tap.prefill_s,
+               "decode_s": tap.decode_s, "cloud_prefills": tap.prefills,
+               "prefill_tokens": tap.prefill_tokens,
+               "decode_tokens": tap.decode_tokens,
+               "prefill_tok_s": tap.prefill_tokens / tap.prefill_s,
+               "decode_tok_s": tap.decode_tokens / tap.decode_s,
+               "split": {r: routes.count(r) for r in sorted(set(routes))},
+               "flash_launches": counts["flash_attention"]}
+        print(f"{cfg.num_layers} layers, {cfg.attn_impl}, {device}: "
+              f"{json.dumps(row)}", flush=True)
+        if tap.prefills != n_cloud or not 0 < n_cloud < len(prompts):
+            fail(f"{n_cloud} cloud routes, {tap.prefills} prefills: want "
+                 f"one prefill a cloud request, and both edge and cloud")
+        want = cfg.num_layers * n_cloud if cfg.attn_impl == "flash" and \
+            device == "cuda" else 0
+        if counts["flash_attention"] != want:
+            fail(f"flash launches {counts['flash_attention']} != {want} "
+                 f"({cfg.num_layers} layers x {n_cloud} cloud prefills)")
+        for r in res.values():
+            n = SERVE_NEW if r.route == "cloud" else 1
+            if r.output is None or len(r.output) != n:
+                fail(f"request {r.rid} ({r.route}) answered {r.output}")
+        return res, tap, row
+
+    recorded = Recorder(FA, "flash_attention")
+    with recorded:
+        res_f, tap_f, row_f = serve(cloud_cfg, cloud, "cuda")
+    res_c, tap_c, row_c = serve(full, cloud, "cuda")
+    cmp_chunked = same_serving("24 layers: flash vs chunked on the card",
+                               res_f, res_c, tap_f, tap_c)
+    tick = decode_tick_trace(torch, cloud_cfg, cloud, prompts)
+    cut = dataclasses.replace(cloud_cfg, num_layers=2)
+    cut_params = {**cloud, "layers": M.tree_map(lambda t: t[:2],
+                                                cloud["layers"])}
+    res_2, tap_2, row_2 = serve(cut, cut_params, "cuda")
+    host_params = M.tree_map(lambda t: t.cpu(), cut_params)
+    res_h, tap_h, row_h = serve(cut, host_params, "cpu")
+    cmp_host = same_serving("2 layers: card vs host", res_2, res_h, tap_2,
+                            tap_h)
+    del cloud, cut_params
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"serving phase {phase_s:.1f} s (parameter init {init_s:.1f} s), "
+          f"{n_params} cloud parameters, prompt lengths "
+          f"{lengths.tolist()}, thresholds {th}", flush=True)
+    return {"recorder": recorded, "phase_s": phase_s, "init_s": init_s,
+            "cloud_params": n_params, "prompt_lengths": lengths.tolist(),
+            "thresholds": th, "flash_24": row_f, "chunked_24": row_c,
+            "flash_2_cuda": row_2, "host_2": row_h, "decode_tick": tick,
+            "flash_vs_chunked": cmp_chunked, "card_vs_host_2": cmp_host}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -667,6 +1046,7 @@ def main() -> None:
     import torch.nn.functional as F
     from repro_torch.detection import components
     from repro_torch.kernels import calibrate as C
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import framediff as FD
     from repro_torch.kernels import morphology as MO
     from repro_torch.kernels import ops, runtime
@@ -680,7 +1060,7 @@ def main() -> None:
                                     run_query, vehicle_pursuit)
     from repro_torch.system import tracks as TK
     from repro_torch.system.scenario import frame_schedule
-    counters = (T, C, FD, MO, PC, SS, SIM)
+    counters = (T, C, FD, MO, PC, SS, SIM, FA)
 
     def zero_counts():
         for mod in counters:
@@ -716,6 +1096,8 @@ def main() -> None:
     torch.cuda.synchronize()
     check_superstep(torch, SS, dev)
     check_associate(torch, F, SIM, ops, dev)
+    torch.cuda.synchronize()
+    check_flash(torch, FA, dev)
     torch.cuda.synchronize()
 
     phase("main path: city_scale (64 edges, 512 cameras, 60 s)")
@@ -1020,6 +1402,12 @@ def main() -> None:
           f"switches with hand-off vs {off.id_switches} without; "
           f"AsyncDriver identical to SimDriver", flush=True)
 
+    phase("serving path: CascadeServer, full-width qwen1.5-0.5b (24 layers, "
+          "flash) behind its edge variant, 16 requests, 8 slots")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: they would move the logits")
+    serving = serving_phase(torch, dev, zero_counts, read_counts)
+
     phase("timing on the main paths' inputs")
     # the most frequent main-path shape family: time the largest recorded
     # input of each kernel (every recorded input is also re-checked)
@@ -1089,6 +1477,33 @@ def main() -> None:
     a_lib = device_ms(torch, lambda: torch.matmul(a_in[0], a_in[1].T), 200)
     (am, ad), ak = a_in[0].shape, a_in[1].shape[0]
     a_bound, a_by = associate_bound_ms(am, ak, ad)
+    # flash attention: every distinct prefill shape of the serving run
+    # re-checked, the largest (the 1,024-token prompt) timed, in the
+    # model's (B, S, H, hd) layout as the layers pass it
+    fl_rec = serving["recorder"]
+    fl_err = max(flash_diff(torch, FA, q, k, v, kw["causal"])
+                 for q, k, v, kw in fl_rec.inputs.values())
+    fq, fk, fv, fkw = fl_rec.inputs[max(fl_rec.inputs, key=lambda s: s[2])]
+    fl_ms = device_ms(torch, lambda: FA.flash_attention(fq, fk, fv, **fkw),
+                      20)
+    fl_plain = device_ms(
+        torch, lambda: FA.flash_attention_torch(fq, fk, fv, True), 5)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
+                                              enable_gqa=True)
+    fl_lib = device_ms(torch, sdpa, 20)
+    fl_lib_err = float((sdpa() - FA.flash_attention_torch(
+        fq, fk, fv, True)).abs().max())
+    fl_shape = (*fq.shape[:2], fk.shape[1], fq.shape[2], fk.shape[2],
+                fq.shape[3])
+    fl_bound, fl_by = flash_bound_ms(fl_shape, fq.element_size())
+    fl_paths = {"serving_24_layers_flash":
+                serving["flash_24"]["flash_launches"],
+                "serving_24_layers_chunked":
+                serving["chunked_24"]["flash_launches"],
+                "serving_2_layers_flash_cuda":
+                serving["flash_2_cuda"]["flash_launches"]}
     ss_paths = {"metropolis": metro_counts["superstep"],
                 "metropolis_smoke": smoke_counts["superstep"],
                 "metropolis_smoke_superstep1": k1_counts["superstep"]}
@@ -1131,6 +1546,16 @@ def main() -> None:
          "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib,
          "library": "torch.matmul(emb, trk.T): the score step only"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:74",
+         "launches": sum(fl_paths.values()), "launches_by_path": fl_paths,
+         "shape": list(fl_shape), "checked_inputs": len(fl_rec.inputs),
+         "max_abs_err": fl_err, "ms": fl_ms, "plain_ms": fl_plain,
+         "bound_ms": fl_bound, "bound_by": fl_by, "library_ms": fl_lib,
+         "library": "F.scaled_dot_product_attention(q, k, v, "
+                    "is_causal=True, enable_gqa=True)",
+         "library_max_abs_err": fl_lib_err},
     ]
     print(json.dumps({"paths": {
         "city_scale": {"cuda_s": city_cuda_s, "cpu_s": city_cpu_s,
@@ -1166,7 +1591,8 @@ def main() -> None:
                              "superstep1_launches": k1_counts["superstep"],
                              "identical_to_cpu": True,
                              "superstep1_bit_identical": True},
-        **track},
+        **track,
+        "serving": {k: v for k, v in serving.items() if k != "recorder"}},
         "triage_one_row": {"shape": [1, 16], "ms": one_ms,
                            "plain_ms": one_plain,
                            "bound_ms": triage_bound_ms(1, 16)[0]},

@@ -10,6 +10,7 @@ so this module needs nothing but the port:
     sc = scenario_from_fields(dataclasses.asdict(other_scenario))
     items = items_from_records(dataclasses.asdict(it) for it in other_items)
     params = cq_params_from_numpy(numpy_tree)   # -> PixelFrontend(params=)
+    params = params_from_numpy(cfg, numpy_tree) # -> CascadeServer, prefill
 
 Running the port on exactly the stream another run consumed separates
 pipeline parity from stream parity; running it on another side's weights
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import meta as M
+from repro_torch.models.config import ModelConfig
 from repro_torch.serving.api import TenantSpec, TierSpec
 from repro_torch.serving.simulator import Item
 from repro_torch.system.pixel_frontend import cq_config
@@ -59,15 +61,14 @@ def scenario_from_fields(d: Mapping[str, Any]) -> Scenario:
     return Scenario(**kw)
 
 
-def cq_params_from_numpy(tree: Mapping[str, Any]) -> M.Tree:
-    """The port's CQ-classifier parameters from a nested dict of numpy
-    arrays with the reference's structure (layer weights stacked on a
-    leading ``num_layers`` axis), as f32 CPU tensors.
+def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any]) -> M.Tree:
+    """The port's parameters of ``cfg`` from a nested dict of numpy arrays
+    with the reference's structure (layer weights stacked on a leading
+    ``num_layers`` axis), as f32 CPU tensors.
 
-    Every leaf path and shape must match ``models.meta.model_meta`` of the
-    pixel frontend's CQ config; a missing, extra or misshapen leaf raises
-    ``ValueError``."""
-    cfg = cq_config()
+    Every leaf path and shape must match ``models.meta.model_meta(cfg)``
+    (which refuses a config outside the port's dense subset); a missing,
+    extra or misshapen leaf raises ``ValueError``."""
     want = {path: meta.shape for path, meta in M.leaves(M.model_meta(cfg))}
     got = {path: np.shape(leaf) for path, leaf in M.leaves(dict(tree))}
     if set(got) != set(want):
@@ -81,3 +82,8 @@ def cq_params_from_numpy(tree: Mapping[str, Any]) -> M.Tree:
     return M.tree_map(
         lambda a: torch.from_numpy(np.array(a, dtype=np.float32)),
         dict(tree))
+
+
+def cq_params_from_numpy(tree: Mapping[str, Any]) -> M.Tree:
+    """``params_from_numpy`` of the pixel frontend's CQ config."""
+    return params_from_numpy(cq_config(), tree)

@@ -14,7 +14,8 @@ rows carry thresholds (1, 0), pad calibration rows truths 0, pad crop
 rows token 0, pad crops query id -1 and threshold 2.0, pad tracks query
 id -2.  The pads are sliced back off before returning, so padding
 is invisible to callers exactly as in the reference.  The pixel kernels
-take the true frame size and need no padding.
+take the true frame size and need no padding, and so does the attention
+kernel, which masks the ragged key tile itself.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import buckets as _bk
 from repro_torch.kernels import calibrate as _ca
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import framediff as _fd
 from repro_torch.kernels import morphology as _mo
 from repro_torch.kernels import pixel_cascade as _pc
@@ -242,3 +244,18 @@ def associate_tracks(emb, trk, crop_q, trk_q, thr, *, device="cuda"):
     assign, sim = _sim.associate(*(t.to(dev) for t in
                                    (emb, trk, crop_q, trk_q, thr)))
     return assign[:M], sim[:M]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
+                    block_k: int = 128, device="cuda") -> torch.Tensor:
+    """Fused attention: q (B, H, Sq, hd), k/v (B, KV, Sk, hd) ->
+    (B, H, Sq, hd), f32 or bf16, H % KV == 0, hd <= 256.
+
+    ONE launch per call at the true Sq and Sk: no padding and no fallback
+    (the reference pads to block multiples and falls back to its unfused
+    oracle where padded keys would be visible).  ``block_q``/``block_k``
+    are the reference's tile knobs, accepted for signature parity; they
+    change nothing here."""
+    dev = resolve_device(device)
+    q, k, v = (torch.as_tensor(t).to(dev) for t in (q, k, v))
+    return _fa.flash_attention(q, k, v, causal=causal)

@@ -40,9 +40,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 #: -Xptxas -v so every build records registers, shared memory and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: every kernel library and the C signature of its ``<name>_launch``:
-#: device pointers, then int sizes/knobs, then the cudaStream_t
+#: device pointers, then int sizes/knobs (64-bit strides), then the
+#: cudaStream_t
 SIGNATURES = {
     # conf, thresholds, routes, slots, counts; rows, n, capacity; stream
     "triage": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -59,8 +60,12 @@ SIGNATURES = {
     "superstep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # emb, trk, crop_q, trk_q, thr, assign, sim; m, k, d; stream
     "associate": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, o; batch, heads, kv_heads, sq, sk, hd, causal, dtype; the
+    # (batch, head, seq) strides of q, k, v and o; stream
+    "flash_attention": (_P, _P, _P, _P, *(_I,) * 8, *(_L,) * 12, _P),
 }
-#: the kernels a run of the query pipeline (either frontend) can launch
+#: every kernel of the port: those a run of the query pipeline (either
+#: frontend) can launch, and the serving path's attention
 KERNELS = tuple(SIGNATURES)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

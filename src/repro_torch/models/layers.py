@@ -1,20 +1,25 @@
-"""Transformer layers of the CQ classifier: RMSNorm, RoPE, chunked causal
-GQA attention, SiLU-gated MLP — the dense, cache-free subset of the
-reference's ``models/layers.py``, in PyTorch.
+"""Transformer layers of the dense models: RMSNorm, RoPE, QKV projection
+(with optional bias and per-head qk RMSNorm), GQA attention, SiLU-gated
+MLP — the dense subset of the reference's ``models/layers.py``, in
+PyTorch.
 
 All functions are pure and shape-polymorphic; parameters are the nested
 dicts of ``models/meta.py``.  The projections are plain ``torch.einsum``
-(the reference leaves them to XLA, outside any Pallas kernel), and
-attention is the reference's chunked path: the flash-attention kernel it
-reaches only under ``attn_impl == "flash"`` comes with the LLM slice.
+(the reference leaves them to XLA, outside any Pallas kernel).  Attention
+is the reference's chunked path, except where the reference reaches its
+flash-attention kernel (``attn_impl == "flash"``, a causal multi-token
+pass over its own fresh K/V: every prefill); there it launches the port's
+kernel through ``kernels.ops.flash_attention``.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as KOPS
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -26,6 +31,14 @@ def norm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over the last axis with a given scale, computed in f32."""
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)).to(x.dtype)
 
 
 def rope_freqs(cfg: ModelConfig, positions: torch.Tensor):
@@ -54,27 +67,51 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
 
 
 def qkv_project(cfg: ModelConfig, p, x: torch.Tensor):
-    """x (B, S, D) -> q (B, S, H, hd), k, v (B, S, KV, hd)."""
+    """x (B, S, D) -> q (B, S, H, hd), k, v (B, S, KV, hd); plus the QKV
+    biases under ``attn_bias`` and a per-head RMSNorm of q and k under
+    ``qk_norm``."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.attn_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm and "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
-              causal: bool = True, chunk: int = 512) -> torch.Tensor:
-    """Chunked GQA attention, f32 scores and softmax.
+              causal: bool = True, window: Optional[int] = None,
+              chunk: int = 512) -> torch.Tensor:
+    """GQA attention, f32 scores and softmax.
 
     q (B, Sq, H, hd), k/v (B, Sk, KV, hd); q_pos (Sq,) or (B, Sq) and
     k_pos (Sk,) or (B, Sk) absolute positions (negative k_pos: an unwritten
-    slot).  Returns (B, Sq, H, hd).  Queries run in chunks of at most
-    ``chunk`` (the largest divisor of Sq not above it), so the score
-    matrix is never Sq x Sk at once."""
+    cache slot; per-row positions carry continuous-batching decode).  A
+    key is seen when it is written, not after the query (``causal``) and,
+    with a ``window``, fewer than ``window`` positions before it.  Returns
+    (B, Sq, H, hd).
+
+    Under ``cfg.attn_impl == "flash"``, a causal multi-token pass with no
+    window over its own K/V (Sq == Sk, positions 0..S-1: a prefill) is one
+    launch of the flash-attention kernel, exactly the reference's
+    condition.  Otherwise queries run in chunks of at most ``chunk`` (the
+    largest divisor of Sq not above it, or one block where that is 1), so
+    the score matrix is rarely Sq x Sk at once."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
+    if (cfg.attn_impl == "flash" and Sq > 1 and causal and window is None
+            and Sq == Sk):
+        o = KOPS.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal=True,
+                                 device=q.device)
+        return o.transpose(1, 2)
     if q_pos.ndim == 1:
         q_pos = q_pos[None].expand(B, Sq)
     if k_pos.ndim == 1:
@@ -88,6 +125,8 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         mask = k_pos[:, None, :] >= 0                      # (B, 1, Sk)
         if causal:
             mask = mask & (k_pos[:, None, :] <= qp[:, :, None])
+        if window is not None:
+            mask = mask & (k_pos[:, None, :] > qp[:, :, None] - window)
         s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
         m = torch.amax(s, dim=-1, keepdim=True)
         e = torch.exp(s - m)
@@ -100,6 +139,8 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         return block(q, q_pos)
     if Sq % chunk:
         chunk = max(d for d in range(1, chunk + 1) if Sq % d == 0)
+        if chunk == 1:      # a prime Sq: one block, as the reference does
+            return block(q, q_pos)
     return torch.cat([block(q[:, i:i + chunk], q_pos[:, i:i + chunk])
                       for i in range(0, Sq, chunk)], dim=1)
 

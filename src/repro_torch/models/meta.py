@@ -1,16 +1,18 @@
-"""Parameter metadata of the CQ classifier: shapes, logical axes, init.
+"""Parameter metadata of the dense models: shapes, logical axes, init.
 
 Every parameter leaf is declared once as a :class:`ParamMeta` carrying its
 shape, logical axis names and init rule, as in the reference's
 ``models/meta.py``; ``init_params`` materialises tensors from it.  Layer
 parameters carry a leading ``stack`` axis of size ``num_layers``, so the
 port's parameter tree has the reference's structure and shapes leaf for
-leaf (``bridge.cq_params_from_numpy`` relies on that).
+leaf (``bridge.params_from_numpy`` relies on that).
 
-This slice carries the dense family (attention + SiLU-gated MLP, RMSNorm):
-``check_dense`` refuses any other config.  The reference draws its init
-from a JAX PRNG key, which torch cannot reproduce; ``init_params`` draws
-the same shapes and scales from a ``torch.Generator`` instead.
+The port carries the dense family (attention with optional QKV bias and
+per-head qk RMSNorm, SiLU-gated MLP, RMSNorm): the CQ classifier and the
+serving path's qwen1.5 / qwen3 models.  ``check_dense`` refuses any other
+config.  The reference draws its init from a JAX PRNG key, which torch
+cannot reproduce; ``init_params`` draws the same shapes and scales from a
+``torch.Generator`` instead.
 """
 from __future__ import annotations
 
@@ -40,16 +42,14 @@ class ParamMeta:
 
 
 def check_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is in the dense,
-    cache-free subset this slice of the port runs."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is in the dense subset
+    the port runs."""
     outside = [what for what, ok in (
         (f"family {cfg.family!r}", cfg.family == "dense"),
         ("MoE", not cfg.is_moe),
         ("SSM", not cfg.has_ssm),
         ("encoder-decoder", not cfg.is_encdec),
         ("image prefix", cfg.num_img_tokens == 0),
-        ("attn_bias", not cfg.attn_bias),
-        ("qk_norm", not cfg.qk_norm),
         (f"rope_style {cfg.rope_style!r}", cfg.rope_style in ("neox",
                                                              "none")),
         (f"norm_type {cfg.norm_type!r}", cfg.norm_type == "rmsnorm"),
@@ -58,19 +58,21 @@ def check_dense(cfg: ModelConfig) -> None:
         ("parallel_block", not cfg.parallel_block),
         ("sliding_window", cfg.sliding_window is None),
         ("logit_softcap", cfg.logit_softcap == 0.0),
-        (f"attn_impl {cfg.attn_impl!r}", cfg.attn_impl == "chunked"),
+        (f"attn_impl {cfg.attn_impl!r}", cfg.attn_impl in ("chunked",
+                                                           "flash")),
+        (f"kv_cache_dtype {cfg.kv_cache_dtype!r}",
+         cfg.kv_cache_dtype == "model"),
     ) if not ok]
     if outside:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(outside)} is outside the dense subset "
-            f"this slice of the PyTorch port runs (the rest comes with the "
-            f"LLM slice)")
+            f"the PyTorch port runs (the rest comes with later slices)")
 
 
 def _attn_meta(cfg: ModelConfig, L: int) -> Tree:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     out_scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
-    return {
+    t: Tree = {
         "wq": ParamMeta((L, D, H, hd), (STACK, "embed", "heads", "head_dim")),
         "wk": ParamMeta((L, D, KV, hd),
                         (STACK, "embed", "kv_heads", "head_dim")),
@@ -79,6 +81,17 @@ def _attn_meta(cfg: ModelConfig, L: int) -> Tree:
         "wo": ParamMeta((L, H, hd, D), (STACK, "heads", "head_dim", "embed"),
                         scale=out_scale),
     }
+    if cfg.attn_bias:
+        t["bq"] = ParamMeta((L, H, hd), (STACK, "heads", "head_dim"),
+                            init="zeros")
+        t["bk"] = ParamMeta((L, KV, hd), (STACK, "kv_heads", "head_dim"),
+                            init="zeros")
+        t["bv"] = ParamMeta((L, KV, hd), (STACK, "kv_heads", "head_dim"),
+                            init="zeros")
+    if cfg.qk_norm:
+        t["q_norm"] = ParamMeta((L, hd), (STACK, "head_dim"), init="ones")
+        t["k_norm"] = ParamMeta((L, hd), (STACK, "head_dim"), init="ones")
+    return t
 
 
 def _norm_meta(D: int, L: Optional[int] = None) -> Tree:

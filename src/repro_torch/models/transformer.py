@@ -1,16 +1,27 @@
-"""The CQ classifier's trunk: token embedding, dense decoder blocks, final
-norm, and the cascade's classification head (mean-pool, then linear).
+"""Trunk of the dense models: token embedding, decoder blocks, final norm,
+the LM and classification heads, and the prefill/decode cache.
 
-The cache-free subset of the reference's ``models/transformer.py``: the
+The dense subset of the reference's ``models/transformer.py``: the
 reference scans stacked layer parameters with ``lax.scan``; here a Python
-loop over layers indexes the same stacked tensors.  ``CQClassifier`` wraps
-config and parameters on an explicit device and maps (N, T) patch tokens
-to (N,) P(query object) — what ``kernels.ops.score_crops`` calls once per
-tick.
+loop over layers indexes the same stacked tensors.  Two users:
+
+* the pixel path's CQ classifier: ``forward`` + ``classify``, wrapped on
+  an explicit device by ``CQClassifier``, which maps (N, T) patch tokens
+  to (N,) P(query object) — what ``kernels.ops.score_crops`` calls once a
+  tick;
+* the serving path (``serving/engine.py``): ``prefill`` writes a decode
+  cache and returns the last position's logits, ``decode_step`` decodes
+  one token per sequence against it.  Positions are per sequence, so
+  slots at different prefix lengths share one decode batch.
+
+The cache is updated in place (the reference returns a new one): prefill
+writes its own fresh cache, and ``decode_step`` writes each layer's new
+K/V row into the cache it is given and returns that same storage, so a
+caller never holds two copies of a multi-GB cache.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,6 +32,7 @@ from repro_torch.models import meta as M
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, object]
+Cache = Dict[str, object]
 
 
 def embed_tokens(cfg: ModelConfig, params: Params,
@@ -29,29 +41,66 @@ def embed_tokens(cfg: ModelConfig, params: Params,
 
 
 def decoder_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
-                  q_pos: torch.Tensor) -> torch.Tensor:
-    """One dense layer without a cache: x + attn(norm(x)), then
-    x + mlp(norm(x)), causal over the sequence."""
+                  q_pos: torch.Tensor,
+                  k_pos: Optional[torch.Tensor] = None,
+                  cache: Optional[Cache] = None, decode: bool = False,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """One dense layer: x + attn(norm(x)), then x + mlp(norm(x)).
+
+    Without ``decode``: causal attention over the sequence itself; with a
+    ``cache`` (a layer's ``{"k", "v"}`` of shape (B, W, KV, hd)) the rotated
+    K and V are written, in place, to its first S positions (prefill).
+    With ``decode``: x is one token per row at ``q_pos`` (B, 1); its K/V go
+    to slot ``q_pos % W`` of row b, and attention reads the whole cache
+    under ``k_pos`` (B, W)."""
     h = L.norm_apply(cfg, lp["norm1"], x)
     q, k, v = L.qkv_project(cfg, lp["attn"], h)
     cos, sin = L.rope_freqs(cfg, q_pos)
     q = L.apply_rope(cfg, q, cos, sin)
     k = L.apply_rope(cfg, k, cos, sin)
-    o = L.attention(cfg, q, k, v, q_pos, q_pos, causal=True)
+    if decode:
+        kc, vc = cache["k"], cache["v"]              # (B, W, KV, hd)
+        B, W = kc.shape[:2]
+        rows = torch.arange(B, device=kc.device)
+        slot = q_pos[:, 0].long() % W                # per-sequence positions
+        kc[rows, slot] = k[:, 0].to(kc.dtype)
+        vc[rows, slot] = v[:, 0].to(vc.dtype)
+        o = L.attention(cfg, q, kc, vc, q_pos, k_pos, causal=True,
+                        window=window)
+    else:
+        if cache is not None:                        # prefill: write cache
+            S = k.shape[1]
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
+        o = L.attention(cfg, q, k, v, q_pos, q_pos, causal=True,
+                        window=window)
     x = x + L.attn_out(lp["attn"], o)
     h2 = L.norm_apply(cfg, lp["norm2"], x)
     return x + L.mlp_apply(cfg, lp["mlp"], h2)
 
 
-def forward(cfg: ModelConfig, params: Params,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> hidden (B, S, D)."""
+def _layer(params: Params, i: int) -> Params:
+    return M.tree_map(lambda t: t[i], params["layers"])
+
+
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence forward (no cache): tokens (B, S) -> hidden (B, S, D)."""
     x = embed_tokens(cfg, params, tokens)
     q_pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(cfg.num_layers):
-        lp = M.tree_map(lambda t: t[i], params["layers"])
-        x = decoder_block(cfg, lp, x, q_pos=q_pos)
+        x = decoder_block(cfg, _layer(params, i), x, q_pos=q_pos,
+                          window=window)
     return L.norm_apply(cfg, params["final_norm"], x)
+
+
+def lm_logits(cfg: ModelConfig, params: Params,
+              hidden: torch.Tensor) -> torch.Tensor:
+    """hidden (B, S, D) -> (B, S, V) logits; the embedding is the head
+    under ``tie_embeddings``."""
+    if cfg.tie_embeddings:
+        return hidden @ params["embed"].T
+    return hidden @ params["lm_head"]
 
 
 def classify(cfg: ModelConfig, params: Params,
@@ -61,6 +110,73 @@ def classify(cfg: ModelConfig, params: Params,
     pooled = torch.mean(hidden.to(torch.float32), dim=1)
     head = params["cls_head"]
     return pooled @ head["w"].to(torch.float32) + head["b"].to(torch.float32)
+
+
+def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+               device="cpu") -> Cache:
+    """An empty decode cache: ``pos`` (B,) at 0, ``kpos`` (B, W) at -1 (no
+    slot written), and per layer f32 K/V (L, B, W, KV, hd) zeros, in the
+    attention's (B, S, KV, hd) layout."""
+    shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "kpos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                               device=device),
+            "layers": {"k": torch.zeros(shape, dtype=torch.float32,
+                                        device=device),
+                       "v": torch.zeros(shape, dtype=torch.float32,
+                                        device=device)}}
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
+                token: torch.Tensor, *, window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One-token decode.  token (B,) -> (logits (B, V), cache).
+
+    ``cache["pos"]`` is per sequence (B,); each row's K/V goes to slot
+    ``pos % W`` of its ring.  The layer K/V are written in place; ``pos``
+    and ``kpos`` come back as new tensors."""
+    pos = cache["pos"]
+    B = token.shape[0]
+    x = embed_tokens(cfg, params, token[:, None])
+    q_pos = pos[:, None].to(torch.int32)                 # (B, 1)
+    kpos = cache["kpos"].clone()                         # (B, W)
+    rows = torch.arange(B, device=kpos.device)
+    kpos[rows, pos.long() % kpos.shape[1]] = pos
+    layers = cache["layers"]
+    for i in range(cfg.num_layers):
+        x = decoder_block(cfg, _layer(params, i), x, q_pos=q_pos,
+                          k_pos=kpos, decode=True, window=window,
+                          cache={"k": layers["k"][i], "v": layers["v"][i]})
+    x = L.norm_apply(cfg, params["final_norm"], x)
+    logits = lm_logits(cfg, params, x)[:, 0]
+    return logits, {"pos": pos + 1, "kpos": kpos, "layers": layers}
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            cache_len: Optional[int] = None,
+            window: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """Full-sequence forward that also writes the decode cache.
+
+    tokens (B, S) -> (last position's logits (B, V), a cache of length
+    ``max(cache_len, S)`` ready for ``decode_step``)."""
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    cache_len = max(cache_len or S, S)
+    q_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    cache = make_cache(cfg, B, cache_len, device=x.device)
+    layers = cache["layers"]
+    for i in range(cfg.num_layers):
+        x = decoder_block(cfg, _layer(params, i), x, q_pos=q_pos,
+                          window=window,
+                          cache={"k": layers["k"][i], "v": layers["v"][i]})
+    x = L.norm_apply(cfg, params["final_norm"], x)
+    logits = lm_logits(cfg, params, x[:, -1:])[:, 0]
+    ar = torch.arange(cache_len, dtype=torch.int32, device=x.device)
+    kpos = torch.where(ar < S, ar, -1)[None].expand(B, cache_len).clone()
+    return logits, {"pos": torch.full((B,), S, dtype=torch.int32,
+                                      device=x.device),
+                    "kpos": kpos, "layers": layers}
 
 
 class CQClassifier(torch.nn.Module):

@@ -8,15 +8,22 @@ reference package, so it also runs on a GPU machine that has neither:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.system as P
+from repro_torch.configs import get_config
+from repro_torch.core.thresholds import ThresholdState
 from repro_torch.kernels import calibrate as C
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import similarity as SIM
 from repro_torch.kernels import superstep as SS
 from repro_torch.kernels import triage as T
+from repro_torch.models import meta as M
+from repro_torch.serving.engine import CascadeServer, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +79,12 @@ def _problem(seed, m, k, d):
     return [torch.from_numpy(a) for a in (emb, trk, cq, tq, thr)]
 
 
+def _qkv(seed, B, H, KV, Sq, Sk, hd, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dtype)
+            for shape in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, hd))]
+
+
 def test_each_launch_counts_once(cuda):
     conf, thr = (t.to(cuda) for t in _fleet(0, 8, 16))
     before = T.LAUNCHES
@@ -93,6 +106,11 @@ def test_each_launch_counts_once(cuda):
     SIM.associate(*problem)
     SIM.associate_torch(*problem)
     assert SIM.LAUNCHES == before + 1
+    q, k, v = (x.to(cuda) for x in _qkv(0, 1, 4, 2, 70, 70, 32))
+    before = FA.LAUNCHES
+    FA.flash_attention(q, k, v)
+    FA.flash_attention_torch(q, k, v)
+    assert FA.LAUNCHES == before + 1
 
 
 def test_cuda_tensors_never_fall_back(cuda):
@@ -110,6 +128,61 @@ def test_cuda_tensors_never_fall_back(cuda):
     tq = torch.zeros(len(trk), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="tracks"):
         SIM.associate(emb, trk, cq, tq, thr)
+    q, k, v = (x.to(cuda) for x in _qkv(0, 1, 2, 2, 16, 16, 288))
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q, k, v)
+    q, k, v = (x.to(cuda) for x in _qkv(0, 1, 2, 2, 16, 16, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
+                           v)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,dtype,causal", [
+    (1, 2, 2, 128, 128, 32, torch.float32, True),
+    (2, 4, 2, 200, 200, 96, torch.float32, True),
+    (1, 8, 2, 64, 256, 16, torch.float32, True),
+    (1, 2, 1, 100, 100, 256, torch.float32, False),
+    (1, 4, 4, 130, 130, 64, torch.bfloat16, True),
+])
+def test_flash_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd, dtype,
+                                    causal):
+    q, k, v = (x.to(cuda) for x in _qkv(1, B, H, KV, Sq, Sk, hd, dtype))
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_torch(q, k, v, causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # the model's (B, S, H, hd) layout goes in as a transposed view
+    got_t = FA.flash_attention(*(x.transpose(1, 2).contiguous().transpose(1, 2)
+                                 for x in (q, k, v)), causal=causal)
+    assert torch.equal(got_t, got)
+
+
+def test_serving_counts_flash_launches(cuda):
+    """Every cloud prefill launches the kernel once a layer; decode never.
+    Tokens equal the host's run on the same weights."""
+    cloud_cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                                    attn_impl="flash")
+    edge_cfg = get_config("qwen1.5-0.5b").edge_variant()
+    cloud = M.init_params(cloud_cfg, torch.Generator().manual_seed(0))
+    edge = M.init_params(edge_cfg, torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(0)
+    lengths = (8, 40, 70, 130)
+
+    def serve(device):
+        reqs = [Request(rid=i, tokens=rng_tokens[i], max_new=4)
+                for i in range(len(lengths))]
+        srv = CascadeServer(edge_cfg, edge, cloud_cfg, cloud, slots=2,
+                            cache_len=140, device=device,
+                            thresholds=ThresholdState(alpha=1.0, beta=0.0))
+        return {rid: (r.route, r.output.tolist())
+                for rid, r in srv.run(reqs).items()}
+
+    rng_tokens = [rng.integers(0, 512, n).astype(np.int32) for n in lengths]
+    FA.LAUNCHES = 0
+    got = serve(cuda)
+    assert FA.LAUNCHES == cloud_cfg.num_layers * len(lengths)
+    assert got == serve("cpu")
 
 
 @pytest.mark.parametrize("name,kw", [

@@ -41,7 +41,8 @@ def test_port_covers_the_kernel_sources():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "triage.cu", "calibrate.cu", "framediff.cu", "morphology.cu",
-        "pixel_cascade.cu", "superstep.cu", "associate.cu"}
+        "pixel_cascade.cu", "superstep.cu", "associate.cu",
+        "flash_attention.cu"}
 
 
 def test_running_the_port_loads_no_jax():
@@ -61,6 +62,22 @@ def test_running_the_port_loads_no_jax():
         "p = run_query(pixel_city(num_cameras=2, duration_s=3.0), "
         "frontend='pixel', device='cpu')\n"
         "assert r.n_items > 0 and d.n_items > 0 and p.n_items > 0\n"
+        "import dataclasses\n"
+        "import numpy as np, torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.core.thresholds import ThresholdState\n"
+        "from repro_torch.models import meta as M\n"
+        "from repro_torch.serving.engine import CascadeServer, Request\n"
+        "full = get_config('qwen1.5-0.5b')\n"
+        "cloud = dataclasses.replace(full.reduced(), attn_impl='flash')\n"
+        "edge = full.edge_variant()\n"
+        "srv = CascadeServer(edge, M.init_params(edge, "
+        "torch.Generator().manual_seed(1)), cloud, M.init_params(cloud, "
+        "torch.Generator().manual_seed(0)), slots=2, cache_len=24, "
+        "thresholds=ThresholdState(alpha=1.0, beta=0.0), device='cpu')\n"
+        "out = srv.run([Request(rid=i, tokens=np.arange(8 + i) % 512, "
+        "max_new=3) for i in range(3)])\n"
+        "assert all(len(o.output) == 3 for o in out.values())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

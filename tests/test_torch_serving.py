@@ -1,0 +1,472 @@
+"""The port's cascade LLM serving path against the reference's.
+
+``prefill`` / ``decode_step`` / ``forward`` on the reduced qwen1.5-0.5b
+(QKV bias) and qwen3-8b (qk-norm, GQA) configs, with the reference's
+weights carried across through numpy (``bridge.params_from_numpy``).  The
+reference initialises the QKV biases to zeros and the qk-norm scales to
+ones, which would hide a port that drops either, so the bridged trees
+perturb those leaves first.  Tolerances are the reference tests': logits
+within 2e-4 (one step) and 5e-4 (a decode chain), the flash path within
+1e-5 of the chunked one (``tests/test_flash_attention.py``).
+
+The engine cases of ``tests/test_engine.py`` run inside the port on its
+own seeded init; ``CascadeServer`` runs against the reference's on the
+bridged weights, under ``attn_impl="flash"`` on both sides (the
+reference's kernel in interpret mode), and must give the same routes and
+the same generated tokens.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.core import cascade as JC
+from repro.core.thresholds import ThresholdState as RefThresholdState
+from repro.models import meta as JM
+from repro.models import transformer as JT
+from repro.serving.engine import CascadeServer as RefCascadeServer
+from repro.serving.engine import Request as RefRequest
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.core import cascade as C
+from repro_torch.core.speculative import cloud_greedy_generate
+from repro_torch.core.thresholds import ThresholdState
+from repro_torch.models import meta as M
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import CascadeServer, DecodeEngine, Request
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = ["qwen1.5-0.5b", "qwen3-8b"]
+
+
+def _flash(cfg):
+    return dataclasses.replace(cfg, attn_impl="flash")
+
+
+def _perturbed(tree, seed):
+    """The reference's tree with nonzero QKV biases and qk-norm scales
+    away from one."""
+    rng = np.random.default_rng(seed)
+    attn = tree["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        if name in attn:
+            attn[name] = (0.1 * rng.standard_normal(attn[name].shape)
+                          ).astype(np.float32)
+    for name in ("q_norm", "k_norm"):
+        if name in attn:
+            attn[name] = (1.0 + 0.2 * rng.standard_normal(attn[name].shape)
+                          ).astype(np.float32)
+    return tree
+
+
+def _bridged(ref_cfg, key, seed):
+    """(reference params, port params): the same perturbed weights."""
+    tree = _perturbed(jax.tree.map(np.asarray, JM.init_params(ref_cfg, key)),
+                      seed)
+    return (jax.tree.map(jnp.asarray, tree),
+            bridge.params_from_numpy(_port_cfg(ref_cfg), tree))
+
+
+def _port_cfg(ref_cfg):
+    """The port's config of the same name and variant."""
+    base = ref_cfg.name.replace("-smoke", "").replace("-edge", "")
+    full = get_config(base)
+    cfg = full.edge_variant() if ref_cfg.name.endswith("-edge") \
+        else full.reduced()
+    return dataclasses.replace(cfg, attn_impl=ref_cfg.attn_impl)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    ref_cfg = ref_get_config(request.param).reduced()
+    jp, tp = _bridged(ref_cfg, jax.random.PRNGKey(3), 0)
+    return ref_cfg, jp, _port_cfg(ref_cfg), tp
+
+
+def _tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(
+        np.int32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x)).long()
+
+
+# --- configs, parameters, refusals ----------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["surveiledge-cls"])
+def test_configs_are_the_references(arch):
+    for variant in (lambda c: c, lambda c: c.reduced(),
+                    lambda c: c.edge_variant()):
+        assert dataclasses.asdict(variant(get_config(arch))) == \
+            dataclasses.asdict(variant(ref_get_config(arch)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_meta_matches_reference_tree(arch):
+    """Every leaf and shape at full width, biases and qk-norm included."""
+    ref_meta = JM.model_meta(ref_get_config(arch))
+    ref_leaves = jax.tree_util.tree_leaves_with_path(
+        ref_meta, is_leaf=lambda x: isinstance(x, JM.ParamMeta))
+    want = {"/".join(k.key for k in path): (m.shape, m.init)
+            for path, m in ref_leaves}
+    got = {p: (m.shape, m.init)
+           for p, m in M.leaves(M.model_meta(get_config(arch)))}
+    assert got == want
+    assert ("layers/attn/bq" in got) == (arch == "qwen1.5-0.5b")
+    assert ("layers/attn/q_norm" in got) == (arch == "qwen3-8b")
+
+
+@pytest.mark.parametrize("change", [
+    dict(num_experts=4, top_k=2), dict(ssm_state=16), dict(num_enc_layers=2),
+    dict(num_img_tokens=8), dict(sliding_window=8), dict(logit_softcap=30.0),
+    dict(parallel_block=True), dict(rope_style="2d"),
+    dict(norm_type="layernorm"), dict(mlp_act="gelu"),
+    dict(kv_cache_dtype="int8"), dict(attn_impl="ring"),
+], ids=lambda c: next(iter(c)))
+def test_check_dense_refuses_what_is_not_ported(change):
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), **change)
+    with pytest.raises(NotImplementedError, match="outside the dense"):
+        M.check_dense(cfg)
+    for ok in ({}, dict(attn_impl="flash")):
+        M.check_dense(dataclasses.replace(get_config("qwen1.5-0.5b"), **ok))
+
+
+def test_unported_archs_are_refused():
+    with pytest.raises(NotImplementedError, match="not in the port"):
+        get_config("mamba2-2.7b")
+
+
+def test_bridge_checks_every_leaf(model):
+    ref_cfg, jp, cfg, _ = model
+    tree = jax.tree.map(np.asarray, jp)
+    attn = dict(tree["layers"]["attn"])
+    extra = "bq" if cfg.attn_bias else "q_norm"
+    del attn[extra]
+    missing = {**tree, "layers": {**tree["layers"], "attn": attn}}
+    with pytest.raises(ValueError, match=extra):
+        bridge.params_from_numpy(cfg, missing)
+    bad = {**tree, "embed": tree["embed"][:, :8]}
+    with pytest.raises(ValueError, match="embed"):
+        bridge.params_from_numpy(cfg, bad)
+    with pytest.raises(NotImplementedError):
+        bridge.params_from_numpy(dataclasses.replace(cfg, sliding_window=4),
+                                 tree)
+
+
+def test_port_init_has_reference_leaves(model):
+    _, jp, cfg, _ = model
+    got = M.init_params(cfg, torch.Generator().manual_seed(0))
+    want = jax.tree.map(np.asarray, JM.init_params(
+        ref_get_config(cfg.name.replace("-smoke", "")).reduced(),
+        jax.random.PRNGKey(0)))
+    assert {p: tuple(t.shape) for p, t in M.leaves(got)} == \
+        {p: np.shape(a) for p, a in M.leaves(want)}
+    for name in ("bq", "bk", "bv"):
+        if cfg.attn_bias:
+            assert not got["layers"]["attn"][name].any()
+    for name in ("q_norm", "k_norm"):
+        if cfg.qk_norm:
+            assert (got["layers"]["attn"][name] == 1).all()
+
+
+# --- prefill / decode against the reference -------------------------------------
+
+
+def test_prefill_and_decode_match_reference(model):
+    ref_cfg, jp, cfg, tp = model
+    B, S = 2, 24
+    tokens = _tokens(1, (B, S), cfg.vocab_size)
+    jl, jc = JT.prefill(ref_cfg, jp, jnp.asarray(tokens[:, :-1]),
+                        cache_len=S + 4)
+    tl, tc = T.prefill(cfg, tp, _t(tokens[:, :-1]), cache_len=S + 4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4, rtol=0)
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+    np.testing.assert_array_equal(tc["kpos"].numpy(), np.asarray(jc["kpos"]))
+    np.testing.assert_allclose(tc["layers"]["k"].numpy(),
+                               np.asarray(jc["layers"]["k"]), atol=2e-4)
+    jd, jc2 = JT.decode_step(ref_cfg, jp, jc, jnp.asarray(tokens[:, -1]))
+    td, tc2 = T.decode_step(cfg, tp, tc, _t(tokens[:, -1]))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=2e-4, rtol=0)
+    np.testing.assert_array_equal(tc2["kpos"].numpy(),
+                                  np.asarray(jc2["kpos"]))
+    np.testing.assert_array_equal(tc2["pos"].numpy(), np.asarray(jc2["pos"]))
+
+
+def test_forward_matches_reference(model):
+    ref_cfg, jp, cfg, tp = model
+    tokens = _tokens(2, (2, 40), cfg.vocab_size)
+    h, _ = JT.forward(ref_cfg, jp, jnp.asarray(tokens))
+    want = np.asarray(JT.lm_logits(ref_cfg, jp, h))
+    got = T.lm_logits(cfg, tp, T.forward(cfg, tp, _t(tokens)))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=0)
+
+
+def test_decode_matches_forward(model):
+    """prefill(S-1) + decode(1) == forward(S) at the last position."""
+    _, _, cfg, tp = model
+    B, S = 2, 24
+    tokens = _t(_tokens(3, (B, S), cfg.vocab_size))
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens))[:, -1]
+    _, cache = T.prefill(cfg, tp, tokens[:, :-1], cache_len=S + 4)
+    got, _ = T.decode_step(cfg, tp, cache, tokens[:, -1])
+    assert float((want - got).abs().max()) < 2e-4
+
+
+def test_multi_step_decode_chain(model):
+    """Decoding token by token equals the full forward's logits."""
+    _, _, cfg, tp = model
+    B, S = 2, 16
+    tokens = _t(_tokens(4, (B, S), cfg.vocab_size))
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens))
+    _, cache = T.prefill(cfg, tp, tokens[:, :4], cache_len=S)
+    for i in range(4, S):
+        got, cache = T.decode_step(cfg, tp, cache, tokens[:, i])
+        err = float((want[:, i] - got).abs().max())
+        assert err < 5e-4, (i, err)
+
+
+def test_sliding_window_decode_consistency(model):
+    """With window w, decode matches a forward pass with the same mask."""
+    _, _, cfg, tp = model
+    B, S, W = 1, 24, 8
+    tokens = _t(_tokens(5, (B, S), cfg.vocab_size))
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens, window=W))[:, -1]
+    _, cache = T.prefill(cfg, tp, tokens[:, :-1], cache_len=S, window=W)
+    got, _ = T.decode_step(cfg, tp, cache, tokens[:, -1], window=W)
+    assert float((want - got).abs().max()) < 2e-4
+
+
+def test_rotating_window_cache(model):
+    """A cache shorter than the sequence: the ring (slot pos % W) still
+    decodes like the windowed forward."""
+    _, _, cfg, tp = model
+    B, S, W = 1, 20, 8
+    tokens = _t(_tokens(6, (B, S), cfg.vocab_size))
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens, window=W))
+    _, cache = T.prefill(cfg, tp, tokens[:, :W], cache_len=W, window=W)
+    for i in range(W, S):
+        got, cache = T.decode_step(cfg, tp, cache, tokens[:, i], window=W)
+        err = float((want[:, i] - got).abs().max())
+        assert err < 5e-4, (i, err)
+
+
+def test_flash_impl_equivalent_in_model(model):
+    """cfg.attn_impl='flash' is numerically equivalent to 'chunked', in
+    the forward and in prefill (the path the serving engine runs)."""
+    _, _, cfg, tp = model
+    tokens = _t(_tokens(7, (2, 64), cfg.vocab_size))
+    h1 = T.forward(cfg, tp, tokens)
+    h2 = T.forward(_flash(cfg), tp, tokens)
+    assert float((h1 - h2).abs().max()) < 1e-5
+    l1, c1 = T.prefill(cfg, tp, tokens, cache_len=70)
+    l2, c2 = T.prefill(_flash(cfg), tp, tokens, cache_len=70)
+    assert float((l1 - l2).abs().max()) < 1e-5
+    assert float((c1["layers"]["v"] - c2["layers"]["v"]).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("S", [521, 600])
+def test_chunked_attention_matches_reference_past_one_chunk(S):
+    """Past 512 queries the chunked path splits them (600: chunks of 300)
+    or, at a prime length, runs one block, as the reference does."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as L
+    cfg = get_config("qwen3-8b").reduced()
+    rng = np.random.default_rng(S)
+    q, k, v = (rng.standard_normal((1, S, h, 16), np.float32)
+               for h in (4, 2, 2))
+    pos = np.arange(S, dtype=np.int32)
+    got = L.attention(cfg, *(torch.from_numpy(a) for a in (q, k, v, pos,
+                                                            pos)))
+    want = JL.attention(cfg, *(jnp.asarray(a) for a in (q, k, v, pos, pos)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_flash_prefill_matches_reference_flash(model):
+    ref_cfg, jp, cfg, tp = model
+    tokens = _tokens(8, (1, 70), cfg.vocab_size)
+    jl, _ = JT.prefill(_flash(ref_cfg), jp, jnp.asarray(tokens),
+                       cache_len=80)
+    tl, _ = T.prefill(_flash(cfg), tp, _t(tokens), cache_len=80)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4, rtol=0)
+
+
+def test_cascade_helpers_match_reference():
+    rng = np.random.default_rng(0)
+    conf = rng.uniform(0, 1, 37).astype(np.float32)
+    want = JC.triage(jnp.asarray(conf), jnp.float32(0.7), jnp.float32(0.2))
+    got = C.triage(torch.from_numpy(conf), 0.7, 0.2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for cap in (4, 37, 64):
+        for g, w in zip(C.compact_escalated(got, cap),
+                        JC.compact_escalated(want, cap)):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+# --- the engine (the cases of tests/test_engine.py, inside the port) -----------
+
+
+@pytest.fixture(scope="module")
+def port_models():
+    cloud_cfg = get_config("qwen1.5-0.5b").reduced()
+    edge_cfg = get_config("qwen1.5-0.5b").edge_variant()
+    cloud = M.init_params(cloud_cfg, torch.Generator().manual_seed(0))
+    edge = M.init_params(edge_cfg, torch.Generator().manual_seed(1))
+    return edge_cfg, edge, cloud_cfg, cloud
+
+
+def _greedy(cfg, params, prompt, steps):
+    return cloud_greedy_generate(cfg, params, _t(prompt)[None],
+                                 steps=steps)[0].numpy()
+
+
+def test_engine_matches_isolated_greedy(port_models):
+    """Batched slot decoding == per-request greedy decoding."""
+    _, _, cfg, params = port_models
+    S, new = 8, 6
+    prompts = [_tokens(i, (S,), cfg.vocab_size) for i in (2, 3, 4)]
+    eng = DecodeEngine(cfg, params, slots=3, cache_len=S + new + 2,
+                       device="cpu")
+    for i, p in enumerate(prompts):
+        assert eng.admit(Request(rid=i, tokens=p, max_new=new))
+    outs = {}
+    while eng.active:
+        for rid, gen in eng.step():
+            outs[rid] = np.asarray(gen)
+    for i, p in enumerate(prompts):
+        np.testing.assert_array_equal(outs[i],
+                                      _greedy(cfg, params, p, new - 1))
+
+
+def test_engine_refills_freed_slots(port_models):
+    _, _, cfg, params = port_models
+    eng = DecodeEngine(cfg, params, slots=2, cache_len=64, device="cpu")
+    p = np.zeros(8, np.int32)
+    assert eng.admit(Request(rid=0, tokens=p, max_new=2))
+    assert eng.admit(Request(rid=1, tokens=p, max_new=2))
+    assert not eng.admit(Request(rid=2, tokens=p, max_new=2))  # full
+    while eng.active:
+        eng.step()
+    assert eng.admit(Request(rid=2, tokens=p, max_new=2))      # freed
+
+
+def test_midflight_admission_mixed_lengths(port_models):
+    """A request admitted while another is mid-decode, with a DIFFERENT
+    prompt length, still decodes exactly like isolated greedy."""
+    _, _, cfg, params = port_models
+    eng = DecodeEngine(cfg, params, slots=2, cache_len=40, device="cpu")
+    pA = _tokens(7, (8,), cfg.vocab_size)
+    pB = _tokens(8, (14,), cfg.vocab_size)
+    assert eng.admit(Request(rid=0, tokens=pA, max_new=10))
+    eng.step()
+    eng.step()              # slot 0 is 2 tokens in...
+    assert eng.admit(Request(rid=1, tokens=pB, max_new=5))   # ...admit B now
+    outs = {}
+    while eng.active:
+        for rid, gen in eng.step():
+            outs[rid] = np.asarray(gen)
+    np.testing.assert_array_equal(outs[0], _greedy(cfg, params, pA, 9))
+    np.testing.assert_array_equal(outs[1], _greedy(cfg, params, pB, 4))
+
+
+def test_cascade_server_routes_and_serves(port_models):
+    edge_cfg, edge, cloud_cfg, cloud = port_models
+    S = 8
+    reqs = [Request(rid=i, tokens=_tokens(10 + i, (S,), cloud_cfg.vocab_size),
+                    max_new=4) for i in range(6)]
+    # alpha=1 => nothing edge-accepts; beta=0 => nothing edge-rejects
+    srv = CascadeServer(edge_cfg, edge, cloud_cfg, cloud, slots=2,
+                        cache_len=S + 8, device="cpu",
+                        thresholds=ThresholdState(alpha=1.0, beta=0.0))
+    results = srv.run(reqs)
+    assert len(results) == 6
+    for r in results.values():
+        assert r.route == "cloud"
+        assert r.output is not None and len(r.output) == 4
+    # some requests waited for a later wave (2 slots x 3 waves)
+    assert any(r.ticks_waited > 0 for r in results.values())
+
+
+def test_cascade_server_edge_shortcuts(port_models):
+    edge_cfg, edge, cloud_cfg, cloud = port_models
+    reqs = [Request(rid=i, tokens=np.zeros(8, np.int32), max_new=2)
+            for i in range(3)]
+    # an empty escalation band: everything is answered at the edge
+    srv = CascadeServer(edge_cfg, edge, cloud_cfg, cloud, slots=2,
+                        cache_len=16, device="cpu",
+                        thresholds=ThresholdState(alpha=0.5, beta=0.4999))
+    results = srv.run(reqs)
+    assert len(results) == 3
+    assert all(r.route in ("edge_accept", "edge_reject")
+               for r in results.values())
+    assert srv.engine.ticks == 0        # cloud never ran
+
+
+def test_engine_default_device_is_the_card(port_models):
+    if torch.cuda.is_available():
+        pytest.skip("the refusal only happens on a host without CUDA")
+    edge_cfg, edge, cloud_cfg, cloud = port_models
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(cloud_cfg, cloud, slots=1, cache_len=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CascadeServer(edge_cfg, edge, cloud_cfg, cloud)
+
+
+# --- the cascade server against the reference's, on the same weights ------------
+
+
+def test_cascade_server_matches_reference_under_flash():
+    arch = "qwen1.5-0.5b"
+    ref_cloud_cfg = _flash(ref_get_config(arch).reduced())
+    ref_edge_cfg = ref_get_config(arch).edge_variant()
+    j_cloud, t_cloud = _bridged(ref_cloud_cfg, jax.random.PRNGKey(0), 1)
+    j_edge, t_edge = _bridged(ref_edge_cfg, jax.random.PRNGKey(1), 2)
+    cloud_cfg, edge_cfg = _port_cfg(ref_cloud_cfg), _port_cfg(ref_edge_cfg)
+    lengths = (8, 12, 8, 16, 12, 8, 20, 16)
+    prompts = [_tokens(20 + i, (n,), edge_cfg.vocab_size)
+               for i, n in enumerate(lengths)]
+
+    def port_server(th):
+        return CascadeServer(edge_cfg, t_edge, cloud_cfg, t_cloud, slots=3,
+                             cache_len=32, thresholds=th, device="cpu")
+
+    # thresholds halfway between confidences: two requests answered at the
+    # edge (one accepted, one rejected), the other six decoded in the cloud
+    conf = sorted(port_server(None).edge_conf(p) for p in prompts)
+    assert min(b - a for a, b in zip(conf, conf[1:])) > 1e-4
+    alpha, beta = (conf[-2] + conf[-1]) / 2, (conf[0] + conf[1]) / 2
+    got = port_server(ThresholdState(alpha=alpha, beta=beta)).run(
+        [Request(rid=i, tokens=p, max_new=5) for i, p in enumerate(prompts)])
+    want = RefCascadeServer(
+        ref_edge_cfg, j_edge, ref_cloud_cfg, j_cloud, slots=3, cache_len=32,
+        thresholds=RefThresholdState(alpha=alpha, beta=beta)).run(
+        [RefRequest(rid=i, tokens=p, max_new=5)
+         for i, p in enumerate(prompts)])
+    assert sorted(got) == sorted(want) == list(range(len(prompts)))
+    routes = [got[i].route for i in range(len(prompts))]
+    assert routes.count("cloud") == 6
+    assert "edge_accept" in routes and "edge_reject" in routes
+    for i in range(len(prompts)):
+        assert got[i].route == want[i].route
+        np.testing.assert_array_equal(got[i].output, np.asarray(want[i].output))
+        assert got[i].ticks_waited == want[i].ticks_waited
+
+
+def test_serve_launcher_runs_on_cpu():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "[serve] cloud decoded" in out.stdout
+    assert "device=cpu" in out.stdout
