@@ -65,9 +65,15 @@ Phases, each fatal on failure:
    the same run's under ``attn_impl="chunked"`` on the card, and, at
    ``num_layers=2``, the host's, a token differing only after a step
    whose top-2 margin is below ``LOGIT_ATOL``, prefill logits within it.
-   Prints prefill and decode tokens/s and the edge/cloud split;
+   Prints prefill and decode tokens/s and the edge/cloud split.  Then
+   qwen3-8b at full depth and width (36 layers), one 2,048-token prefill
+   under the chunked path, under flash (36 launches) and under flash with
+   SDPA in the kernel's place: finite logits, and the kernel's drift from
+   the chunked path's logits within ``DEEP_DRIFT_RATIO`` x SDPA's;
 10. time each kernel and its plain version on the inputs the main paths
-   gave it (the pixel kernels also at 1080p), and print
+   gave it (the pixel kernels also at 1080p; flash attention and SDPA at
+   every prefill length of the serving run, summed over its launches,
+   and at qwen3-8b's prefill, in f32 and in bf16), and print
    ``{"kernels": [...]}`` (per kernel: launches per path, max error
    against the plain version, kernel/plain ms with the stream pre-loaded,
    the bound from the bytes and operations of the timed inputs, and the
@@ -93,6 +99,11 @@ SRC = ROOT / "src"
 #: tensor cores — the two rates a bound is taken against
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12  # also taken as the scalar integer rate
+#: dense TF32 FLOP/s of the tensor cores, the rate of the flash kernel's
+#: split-TF32 products (three TF32 products stand for one f32 product)
+TF32_FLOP_S = 495e12
+#: dense bf16 FLOP/s of the tensor cores, the rate of the bf16 flash kernel
+BF16_FLOP_S = 989e12
 #: params tolerance, kernel vs plain version on the card: both are f32
 #: Newton fits of one function, but the kernel sums in a tree of warp
 #: shuffles and contracts multiply-adds, and 8 Newton steps carry those
@@ -166,6 +177,9 @@ FLASH_SHAPES = [(1, 2, 2, 128, 128, 32), (2, 4, 2, 256, 256, 64),
                 (1, 2, 2, 300, 300, 96), (1, 2, 1, 130, 130, 256),
                 (1, 16, 16, 1024, 1024, 64), (1, 32, 8, 2048, 2048, 128)]
 FLASH_BF16_SHAPES = [(1, 2, 2, 128, 128, 32), (1, 16, 16, 1024, 1024, 64)]
+#: qwen3-8b's GQA prefill (B, H, KV, Sq, Sk, hd), timed beside the serving
+#: shapes
+QWEN3_8B_PREFILL = (1, 32, 8, 2048, 2048, 128)
 #: the serving phase: requests, their prompt lengths, decode steps, slots
 SERVE_REQUESTS = 16
 SERVE_LENGTHS = (64, 1024)
@@ -179,6 +193,11 @@ DECODE_TICKS = 8
 #: order; the logits have a standard deviation near 1.  A greedy token may
 #: differ only after a step whose top-2 margin in the plain run is below it
 LOGIT_ATOL = 1e-4
+#: the qwen3-8b full-depth prefill: its prompt (qwen3-8b's prefill shape
+#: above), and how far its logits may drift from the chunked path's, as a
+#: multiple of the drift with SDPA in the kernel's place
+DEEP_PROMPT = 2048
+DEEP_DRIFT_RATIO = 1.5
 
 
 def fail(msg: str) -> None:
@@ -447,19 +466,22 @@ def pixel_bound_ms(name: str, shape) -> tuple:
 class Recorder:
     """Wraps a kernel wrapper to keep the first input of every distinct
     first-argument shape the main path gives it (copies of the tensors,
-    then the keywords, for timing afterwards); with ``keep_all`` also
-    every call's input, in order, in ``calls``."""
+    then the keywords, for timing afterwards) and count the calls of each
+    (``counts``); with ``keep_all`` also every call's input, in order, in
+    ``calls``."""
 
     def __init__(self, module, attr: str, keep_all: bool = False):
         self.module, self.attr = module, attr
         self.inner = getattr(module, attr)
         self.inputs = {}
+        self.counts = {}
         self.keep_all = keep_all
         self.calls = []
 
     def __enter__(self):
         def wrapped(*args, **kw):
             key = tuple(args[0].shape)
+            self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.inputs or self.keep_all:
                 copy = (*(a.clone() for a in args), kw)
                 self.inputs.setdefault(key, copy)
@@ -620,17 +642,24 @@ def check_flash(torch, FA, dev) -> None:
               f"max err {worst[0]:.3g} at {worst[1][1:]}", flush=True)
 
 
-def flash_bound_ms(shape, nbytes_el: int, causal: bool = True) -> tuple:
+def flash_bound_ms(shape, nbytes_el: int, causal: bool = True) -> dict:
     """Least time for one attention call: 4 operations per (query, visible
-    key, head-dim lane) — QK^T and PV — over the f32 rate, or q, k, v and
-    o moved once over HBM, whichever is larger."""
+    key, head-dim lane) — QK^T and PV — or q, k, v and o moved once over
+    HBM, whichever takes longer.  ``ms``/``by``: the operations as three
+    TF32 products each on the tensor cores (the kernel's split TF32), or
+    in bf16 (2-byte elements) as one bf16 product;
+    ``f32_simt_ms``: as f32 operations outside the tensor cores; and the
+    bytes bound alone."""
     B, H, KV, Sq, Sk, hd = shape
     pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
              else Sq * Sk)
     ops = 4 * B * H * hd * pairs
     nbytes = (2 * B * H * Sq + 2 * B * KV * Sk) * hd * nbytes_el
+    t_tc = 3 * ops / TF32_FLOP_S if nbytes_el == 4 else ops / BF16_FLOP_S
     t_b, t_o = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    return {"ms": max(t_b, t_tc) * 1e3,
+            "by": "bytes" if t_b >= t_tc else "operations",
+            "f32_simt_ms": max(t_b, t_o) * 1e3, "bytes_ms": t_b * 1e3}
 
 
 class ServeTap:
@@ -1036,6 +1065,80 @@ def serving_phase(torch, dev, zero_counts, read_counts) -> dict:
             "flash_vs_chunked": cmp_chunked, "card_vs_host_2": cmp_host}
 
 
+def deep_logit_gap(torch, dev) -> dict:
+    """Flash vs chunked prefill logits at qwen3-8b's full depth and width
+    (36 layers, GQA 32/8, hd 128), seeded random weights drawn on the
+    card: one ``DEEP_PROMPT``-token prompt through ``transformer.prefill``
+    under the chunked path, under flash (36 launches), and under flash
+    with ``F.scaled_dot_product_attention`` in the kernel's place.  Even
+    exact f32 attention drifts from the chunked path over 36 layers
+    (``LOGIT_ATOL`` gates 24 in the serving phase), so the kernel's drift
+    is held to ``DEEP_DRIFT_RATIO`` times SDPA's."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import meta as M
+    from repro_torch.models import transformer as TR
+    cfg = get_config("qwen3-8b")
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def leaf(m):
+        if m.init in ("zeros", "ones"):
+            return getattr(torch, m.init)(m.shape, device=dev)
+        return torch.randn(m.shape, generator=gen, device=dev) * m.scale
+
+    def sdpa(q, k, v, *, causal=True):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+
+    params = M.tree_map(leaf, M.model_meta(cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (1, DEEP_PROMPT),
+                           generator=torch.Generator().manual_seed(10)
+                           ).to(dev)
+    logits, launches = {}, {}
+    kernel = FA.flash_attention
+    with torch.no_grad():
+        for run, impl in (("chunked", "chunked"), ("flash", "flash"),
+                          ("sdpa", "flash")):
+            FA.flash_attention = sdpa if run == "sdpa" else kernel
+            before = FA.LAUNCHES
+            try:
+                logits[run] = TR.prefill(dataclasses.replace(
+                    cfg, attn_impl=impl), params, tokens)[0]
+            finally:
+                FA.flash_attention = kernel
+            launches[run] = FA.LAUNCHES - before
+    del params
+    torch.cuda.empty_cache()
+    if launches != {"chunked": 0, "flash": cfg.num_layers, "sdpa": 0}:
+        fail(f"qwen3-8b prefill: flash launches {launches}, want "
+             f"{cfg.num_layers} under flash and none otherwise")
+    lc = logits["chunked"]
+    for run in ("flash", "sdpa"):
+        if logits[run].shape != (1, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits[run]).all()):
+            fail(f"qwen3-8b prefill logits ({run}) "
+                 f"{tuple(logits[run].shape)} not finite")
+    drift = {run: float((logits[run] - lc).abs().max())
+             for run in ("flash", "sdpa")}
+    top2 = lc[0].topk(2).values
+    row = {"layers": cfg.num_layers, "prompt": DEEP_PROMPT,
+           "max_abs_err": drift["flash"], "sdpa_max_abs_err": drift["sdpa"],
+           "logit_std": float(lc.std()),
+           "same_argmax": bool(logits["flash"].argmax() == lc.argmax()),
+           "top2_margin": float(top2[0] - top2[1])}
+    print(f"qwen3-8b, {cfg.num_layers} layers, one {DEEP_PROMPT}-token "
+          f"prefill: logits vs the chunked path's within "
+          f"{drift['flash']:.3g} (flash), {drift['sdpa']:.3g} (SDPA in its "
+          f"place); logit std {row['logit_std']:.3g}, same argmax "
+          f"{row['same_argmax']}", flush=True)
+    if not drift["flash"] <= DEEP_DRIFT_RATIO * drift["sdpa"]:
+        fail(f"qwen3-8b prefill: the flash kernel's logits drift "
+             f"{drift['flash']} from the chunked path's, over "
+             f"{DEEP_DRIFT_RATIO} x SDPA's {drift['sdpa']}")
+    return row
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -1407,6 +1510,7 @@ def main() -> None:
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: they would move the logits")
     serving = serving_phase(torch, dev, zero_counts, read_counts)
+    deep = deep_logit_gap(torch, dev)
 
     phase("timing on the main paths' inputs")
     # the most frequent main-path shape family: time the largest recorded
@@ -1478,26 +1582,79 @@ def main() -> None:
     (am, ad), ak = a_in[0].shape, a_in[1].shape[0]
     a_bound, a_by = associate_bound_ms(am, ak, ad)
     # flash attention: every distinct prefill shape of the serving run
-    # re-checked, the largest (the 1,024-token prompt) timed, in the
-    # model's (B, S, H, hd) layout as the layers pass it
+    # re-checked and timed against SDPA, in the model's (B, S, H, hd)
+    # layout as the layers pass it; the largest (the 1,024-token prompt)
+    # is the row's
     fl_rec = serving["recorder"]
     fl_err = max(flash_diff(torch, FA, q, k, v, kw["causal"])
                  for q, k, v, kw in fl_rec.inputs.values())
+
+    def flash_times(q, k, v, reps=20):
+        """(kernel ms, SDPA ms) for one causal call."""
+        return (device_ms(torch, lambda: FA.flash_attention(q, k, v), reps),
+                device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), reps))
+
+    def geometry(q, k):
+        return (*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3])
+
+    fl_shapes = []
+    for key, (q, k, v, _) in sorted(fl_rec.inputs.items(),
+                                    key=lambda kv: kv[0][2]):
+        ms, lib = flash_times(q, k, v)
+        fl_shapes.append({"shape": list(geometry(q, k)),
+                          "launches": fl_rec.counts[key], "ms": ms,
+                          "sdpa_ms": lib, "bound_ms": flash_bound_ms(
+                              geometry(q, k), q.element_size())["ms"]})
+    fl_run = {key: sum(r["launches"] * r[key] for r in fl_shapes)
+              for key in ("ms", "sdpa_ms", "bound_ms")}
+    fl_run["launches"] = sum(r["launches"] for r in fl_shapes)
+    if fl_run["launches"] != serving["flash_24"]["flash_launches"]:
+        fail(f"the recorder saw {fl_run['launches']} flash calls, the "
+             f"counter {serving['flash_24']['flash_launches']}")
+    print(f"flash device ms per serving run ({fl_run['launches']} launches "
+          f"over {len(fl_shapes)} prompt lengths): kernel {fl_run['ms']:.4f}"
+          f", SDPA {fl_run['sdpa_ms']:.4f}, bound {fl_run['bound_ms']:.4f}",
+          flush=True)
     fq, fk, fv, fkw = fl_rec.inputs[max(fl_rec.inputs, key=lambda s: s[2])]
-    fl_ms = device_ms(torch, lambda: FA.flash_attention(fq, fk, fv, **fkw),
-                      20)
+    fl_ms, fl_lib = flash_times(fq, fk, fv)
     fl_plain = device_ms(
         torch, lambda: FA.flash_attention_torch(fq, fk, fv, True), 5)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
-                                              enable_gqa=True)
-    fl_lib = device_ms(torch, sdpa, 20)
-    fl_lib_err = float((sdpa() - FA.flash_attention_torch(
-        fq, fk, fv, True)).abs().max())
-    fl_shape = (*fq.shape[:2], fk.shape[1], fq.shape[2], fk.shape[2],
-                fq.shape[3])
-    fl_bound, fl_by = flash_bound_ms(fl_shape, fq.element_size())
+    fl_lib_err = float((F.scaled_dot_product_attention(
+        fq, fk, fv, is_causal=True, enable_gqa=True)
+        - FA.flash_attention_torch(fq, fk, fv, True)).abs().max())
+    fl_shape = geometry(fq, fk)
+    fl_bound = flash_bound_ms(fl_shape, fq.element_size())
+    # qwen3-8b's GQA prefill (not on the main path), in the model's layout
+    g8 = torch.Generator(device="cpu").manual_seed(8)
+    q8, k8, v8 = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+                  qkv(torch, g8, QWEN3_8B_PREFILL, torch.float32, dev))
+    q8_ms, q8_lib = flash_times(q8, k8, v8)
+    q8_bound = flash_bound_ms(QWEN3_8B_PREFILL, 4)
+    fl_qwen3 = {"shape": list(QWEN3_8B_PREFILL), "ms": q8_ms,
+                "sdpa_ms": q8_lib, "bound_ms": q8_bound["ms"],
+                "bound_f32_simt_ms": q8_bound["f32_simt_ms"]}
+    del q8, k8, v8
+    # bf16 (not on the main path) at the same two shapes, against SDPA's
+    fl_bf16 = []
+    for shape in (fl_shape, QWEN3_8B_PREFILL):
+        qb, kb, vb = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+                      qkv(torch, g8, shape, torch.bfloat16, dev))
+        err_b = flash_diff(torch, FA, qb, kb, vb, True)
+        ms_b, lib_b = flash_times(qb, kb, vb)
+        fl_bf16.append({"shape": list(shape), "ms": ms_b, "sdpa_ms": lib_b,
+                        "bound_ms": flash_bound_ms(shape, 2)["ms"],
+                        "max_abs_err": err_b})
+        del qb, kb, vb
+    print(f"flash at (1, 16, 16, 1024, 1024, 64): kernel {fl_ms:.4f} ms, "
+          f"SDPA {fl_lib:.4f} ms, 3xTF32 bound {fl_bound['ms']:.4f} ms, "
+          f"bytes bound {fl_bound['bytes_ms']:.4f} ms, f32-SIMT bound "
+          f"{fl_bound['f32_simt_ms']:.4f} ms; qwen3-8b {QWEN3_8B_PREFILL}: "
+          f"kernel {q8_ms:.4f} ms, SDPA {q8_lib:.4f} ms, 3xTF32 bound "
+          f"{fl_qwen3['bound_ms']:.4f} ms; bf16: " + ", ".join(
+              f"{tuple(r['shape'])} kernel {r['ms']:.4f} ms, SDPA "
+              f"{r['sdpa_ms']:.4f} ms, bf16 bound {r['bound_ms']:.4f} ms"
+              for r in fl_bf16), flush=True)
     fl_paths = {"serving_24_layers_flash":
                 serving["flash_24"]["flash_launches"],
                 "serving_24_layers_chunked":
@@ -1552,10 +1709,14 @@ def main() -> None:
          "launches": sum(fl_paths.values()), "launches_by_path": fl_paths,
          "shape": list(fl_shape), "checked_inputs": len(fl_rec.inputs),
          "max_abs_err": fl_err, "ms": fl_ms, "plain_ms": fl_plain,
-         "bound_ms": fl_bound, "bound_by": fl_by, "library_ms": fl_lib,
+         "bound_ms": fl_bound["ms"], "bound_by": fl_bound["by"],
+         "bound_f32_simt_ms": fl_bound["f32_simt_ms"],
+         "bound_bytes_ms": fl_bound["bytes_ms"], "library_ms": fl_lib,
          "library": "F.scaled_dot_product_attention(q, k, v, "
                     "is_causal=True, enable_gqa=True)",
-         "library_max_abs_err": fl_lib_err},
+         "library_max_abs_err": fl_lib_err, "serving_run": fl_run,
+         "serving_shapes": fl_shapes, "qwen3_8b": fl_qwen3,
+         "qwen3_8b_prefill_logits": deep, "bf16": fl_bf16},
     ]
     print(json.dumps({"paths": {
         "city_scale": {"cuda_s": city_cuda_s, "cpu_s": city_cpu_s,

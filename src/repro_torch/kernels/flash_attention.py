@@ -4,11 +4,14 @@ Every prefill of the cloud model under ``attn_impl="flash"`` runs its
 causal self-attention through here, once a layer.
 
 * ``flash_attention`` is the wrapper: CUDA tensors launch the
-  hand-written kernel ``csrc/flash_attention.cu`` (one 256-thread block a
-  (batch, head, 64 query rows), K/V tiles streamed through shared memory,
-  f32 FMAs, the true Sq and Sk masked in the kernel) and bump
-  ``LAUNCHES``; CPU tensors run ``flash_attention_torch``.  There is no
-  fallback between the two, and nothing is padded.
+  hand-written kernel ``csrc/flash_attention.cu`` and bump ``LAUNCHES``;
+  CPU tensors run ``flash_attention_torch``.  There is no fallback
+  between the two, and nothing is padded.  At head dims 64 and 128
+  (``TC_HEAD_DIMS``, every attention config of the repo) the kernel runs
+  on the tensor cores with K and V brought in by TMA: f32 in split TF32
+  (3xTF32, three TF32 products per f32 product), bf16 on bf16 products
+  with P rounded to bf16.  Other head dims take its f32-FMA kernel.
+  Either way a call is one launch.
 * ``flash_attention_torch`` is the plain PyTorch version of the
   reference's unfused oracle ``ref.mha_ref``: f32 scores, a -1e30 causal
   mask, softmax, f32 product with V.
@@ -34,6 +37,9 @@ MAX_HEAD_DIM = 256
 #: input dtypes the kernel takes, and the code ``flash_attention_launch``
 #: knows each by
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims that run on the tensor cores (f32 and bf16); their K and V
+#: come in by TMA, which wants 16-byte aligned bases and strides
+TC_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,7 +106,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: the head dim of q, k and v must "
                          "be contiguous")
     o = torch.empty_like(q)     # q's layout (dense: contiguous otherwise)
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    # an axis of extent 1 is never stepped along: its stride is moot
+    strides = [st if n > 1 else 0 for t in (q, k, v, o)
+               for n, st in zip(t.shape[:3], t.stride()[:3])]
+    if hd in TC_HEAD_DIMS and (
+            any(t.data_ptr() % 16 for t in (q, k, v))
+            or any(st * q.element_size() % 16 for st in strides)):
+        raise ValueError("flash_attention: at head dim 64 and 128 the "
+                         "kernel needs q, k and v 16-byte aligned, with "
+                         "strides of whole 16-byte units")
     rc = runtime.library("flash_attention").flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, KV, Sq,
         Sk, hd, int(bool(causal)), DTYPES[q.dtype], *strides,

@@ -143,6 +143,15 @@ def test_cuda_tensors_never_fall_back(cuda):
     (1, 8, 2, 64, 256, 16, torch.float32, True),
     (1, 2, 1, 100, 100, 256, torch.float32, False),
     (1, 4, 4, 130, 130, 64, torch.bfloat16, True),
+    # the tensor-core kernel: hd 128 GQA, ragged lengths (977: the serving
+    # run's prime prompt), Sq != Sk, bf16 at hd 128
+    (1, 8, 2, 512, 512, 128, torch.float32, True),
+    (1, 4, 4, 1, 1, 64, torch.float32, True),
+    (1, 4, 4, 63, 63, 64, torch.float32, True),
+    (1, 4, 4, 65, 65, 64, torch.float32, True),
+    (1, 4, 4, 977, 977, 64, torch.float32, True),
+    (1, 4, 4, 64, 256, 64, torch.float32, False),
+    (1, 8, 2, 256, 256, 128, torch.bfloat16, True),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd, dtype,
                                     causal):
@@ -156,6 +165,18 @@ def test_flash_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd, dtype,
     got_t = FA.flash_attention(*(x.transpose(1, 2).contiguous().transpose(1, 2)
                                  for x in (q, k, v)), causal=causal)
     assert torch.equal(got_t, got)
+
+
+def test_flash_refuses_unaligned_tensor_core_inputs(cuda):
+    """At head dims 64 and 128 K and V come in by TMA: a base or stride
+    off the 16-byte grid raises instead of launching."""
+    q, k, v = (x.to(cuda) for x in _qkv(2, 1, 2, 2, 16, 16, 64))
+    wide = torch.zeros((1, 2, 16, 65), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(q, wide[..., 1:], v)
+    before = FA.LAUNCHES
+    FA.flash_attention(q, k, v)
+    assert FA.LAUNCHES == before + 1
 
 
 def test_serving_counts_flash_launches(cuda):

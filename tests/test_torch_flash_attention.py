@@ -10,6 +10,8 @@ inputs are the f32 draws rounded to bf16 on each side).  Tolerances are
 the reference file's: 2e-5 in f32 (the same f32 function, sums in another
 order), 2e-2 in bf16 (the output is rounded to bf16).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,3 +149,93 @@ def test_ops_default_device_is_the_card():
     _, tq = _both(_qkv(8, 1, 2, 2, 8, 8, 16))
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.flash_attention(*tq)
+
+
+# ---------------------------------------------------------------------------
+# The card's f32 kernel (head dims 64 and 128) multiplies on the tensor
+# cores in split TF32.  These tests emulate its arithmetic on the CPU.
+# ---------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round to TF32 (10 mantissa bits) to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32``: add half a TF32 ulp to the magnitude's bits and
+    clear the 13 bits below it."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _attention_tf32(q, k, v, causal, split=True):
+    """The kernel's arithmetic in plain PyTorch: q * 1/sqrt(hd) in f32,
+    every product of TF32 parts (exact in f32) summed in f32 — hi*hi +
+    hi*lo + lo*hi with ``split``, hi*hi alone without — and the
+    unnormalised probabilities split before the product with V."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    x = (q.float() * (1.0 / math.sqrt(hd))).reshape(B, KV, G, Sq, hd)
+    qh, ql = _split(x)
+    kh, kl = _split(k.float())
+    vh, vl = _split(v.float())
+
+    def prod(a_hi, a_lo, b_hi, b_lo, eq):
+        out = torch.einsum(eq, a_hi, b_hi)
+        if split:
+            out = out + torch.einsum(eq, a_hi, b_lo) + torch.einsum(
+                eq, a_lo, b_hi)
+        return out
+
+    s = prod(qh, ql, kh, kl, "bkgqh,bksh->bkgqs")
+    if causal:
+        mask = torch.arange(Sq)[:, None] >= torch.arange(Sk)[None, :]
+        s = torch.where(mask, s, FA.NEG_INF)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    eh, el = _split(e)
+    o = prod(eh, el, vh, vl, "bkgqs,bksh->bkgqh") / e.sum(-1, keepdim=True)
+    return o.reshape(B, H, Sq, hd)
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e-3])
+    got = _tf32(x)
+    assert got[0] == 1.0 + 2.0 ** -10          # a tie rounds away from 0
+    assert got[1] == 1.0 + 2.0 ** -9
+    assert got[2] == -(1.0 + 2.0 ** -10)
+    assert got[3] == 1.0
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert abs(float(got[4]) - 3.0e-3) <= 3.0e-3 * 2.0 ** -11
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,causal", [
+    (1, 2, 2, 128, 128, 32, True),     # the reference file's f32 cases
+    (2, 4, 2, 256, 256, 64, True),
+    (1, 8, 2, 128, 128, 32, True),
+    (1, 2, 1, 192, 192, 16, True),
+    (1, 2, 2, 128, 128, 32, False),
+    (1, 4, 4, 64, 256, 32, True),
+    (1, 4, 4, 1024, 1024, 64, True),   # qwen1.5-0.5b's prefill, 4 heads
+])
+def test_split_tf32_holds_the_f32_tolerance(B, H, KV, Sq, Sk, hd, causal):
+    """The card kernel's split scheme (3xTF32) stays within the f32
+    tolerance (2e-5) of the plain f32 version.  The emulation rounds every
+    sum to nearest; the tensor cores' f32 accumulation, which rounds less
+    well, is not modelled, so this does not bound the card's error."""
+    _, tq = _both(_qkv(9, B, H, KV, Sq, Sk, hd))
+    want = FA.flash_attention_torch(*tq, causal)
+    got = _attention_tf32(*tq, causal)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_plain_tf32_misses_the_f32_tolerance():
+    """Why the split is there: one TF32 product each misses 2e-5 by far
+    at qwen1.5-0.5b's 1,024-token prefill."""
+    _, tq = _both(_qkv(9, 1, 4, 4, 1024, 1024, 64))
+    want = FA.flash_attention_torch(*tq, True)
+    err = float((_attention_tf32(*tq, True, split=False) - want).abs().max())
+    assert err > 10 * 2e-5
