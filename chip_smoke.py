@@ -20,8 +20,12 @@ Phases, each fatal on failure:
    bit for bit (routes, slots and f32 thresholds) at ``SUPERSTEP_SHAPES``
    — the metropolis cap slab among them — with masks all off and all on,
    drains on both sides of the interval and capacity overflow; the track
-   association at the reference test's shapes, K = 0, an all-masked query
-   and a tie, ``assign`` exactly and ``sim`` within ``SIM_ATOL``; flash
+   association at ``ASSOC_SHAPES`` (the reference test's, several row
+   tiles, several track chunks, ``MAX_TRACKS``), K = 0, an all-masked
+   query, a tie and ``assoc_cases`` (a rescan after a claim, a chain of
+   crops contending for one track, a tie only after a claim, a query
+   with no tracks, a floor below NEG_INF), ``assign`` exactly and ``sim``
+   within ``SIM_ATOL``; flash
    attention, causal and not, within ``FLASH_ATOL`` at ``FLASH_SHAPES``
    (the reference test's, Sq 64 against Sk 256, Sq = Sk = 1000, head dims
    16 to 256, qwen1.5-0.5b's and qwen3-8b's prefill) and in bf16, and on
@@ -73,7 +77,10 @@ Phases, each fatal on failure:
 10. time each kernel and its plain version on the inputs the main paths
    gave it (the pixel kernels also at 1080p; flash attention and SDPA at
    every prefill length of the serving run, summed over its launches,
-   and at qwen3-8b's prefill, in f32 and in bf16), and print
+   and at qwen3-8b's prefill, in f32 and in bf16; the superstep at every
+   slab shape of the three metropolis runs and the association at every
+   (M, K, D) of the track runs, each with its launches, bound and the
+   run's sum), and print
    ``{"kernels": [...]}`` (per kernel: launches per path, max error
    against the plain version, kernel/plain ms with the stream pre-loaded,
    the bound from the bytes and operations of the timed inputs, and the
@@ -150,11 +157,21 @@ HOLD_CYCLES = 500_000_000
 #: (``tests/test_track_query.py``'s tolerance)
 SIM_ATOL = 1e-5
 #: (S, R, N) superstep slabs: one row, metropolis's smallest and largest
-#: smoke-size slabs, the cap slab (``MAX_SUPERSTEP_ELEMS``), an odd S
+#: smoke-size slabs, the cap slab (``MAX_SUPERSTEP_ELEMS``), an odd S;
+#: every packed width (N = 1, 3, 16, 32: 32, 8, 2 and 1 rows a warp) and
+#: the chunk walk (N = 33, 64), with R not a multiple of the rows a warp
+#: packs, and an odd S at the cap slab's size
 SUPERSTEP_SHAPES = [(1, 1, 8), (2, 16, 8), (64, 8192, 8), (32, 16384, 8),
-                    (7, 100, 8)]
-#: (M, K, D) association problems of ``tests/test_track_query.py``
-ASSOC_SHAPES = [(5, 7, 16), (1, 1, 4), (16, 16, 32)]
+                    (7, 100, 8), (7, 101, 1), (9, 37, 3), (5, 203, 16),
+                    (3, 66, 32), (5, 19, 33), (3, 66, 64), (33, 16381, 8)]
+#: (M, K, D) association problems: ``tests/test_track_query.py``'s, the
+#: track presets' largest, crop rows over several shared-memory tiles, K
+#: over several staged track chunks, ``similarity.MAX_TRACKS`` (one row a
+#: tile), D over several column chunks, and a D the 16-byte loads cannot
+#: take
+ASSOC_SHAPES = [(5, 7, 16), (1, 1, 4), (16, 16, 32), (128, 128, 32),
+                (1024, 128, 32), (64, 4096, 32), (16, 32768, 32),
+                (40, 300, 72), (24, 50, 37)]
 #: simulated seconds of the full-fleet metropolis run: only the duration
 #: of the preset (60 s) is cut, never its fleet
 METRO_S = 12.0
@@ -569,6 +586,17 @@ def assoc_diff(torch, got, want) -> float:
         if got[1].numel() else 0.0
 
 
+def assoc_cases(torch) -> dict:
+    """``tests/torch_kernel_cases.py``'s association problems whose greedy
+    order the kernel's claim shortcuts must not change, as CPU tensors,
+    with the plain version's ``assign``: name -> (emb, trk, crop_q, trk_q,
+    thr, assign)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_kernel_cases import ASSOC_CASES
+    return {name: (*(torch.from_numpy(a) for a in case[:5]), case[5])
+            for name, case in ASSOC_CASES.items()}
+
+
 def check_associate(torch, F, SIM, ops, dev) -> None:
     g = torch.Generator(device="cpu").manual_seed(3)
     problems = [assoc_problem(torch, F, g, *mkd) for mkd in ASSOC_SHAPES]
@@ -581,6 +609,8 @@ def check_associate(torch, F, SIM, ops, dev) -> None:
     tie = (emb, trk, torch.zeros(2, dtype=torch.int32),
            torch.zeros(3, dtype=torch.int32), torch.full((2,), 0.5))
     problems.append(tie)
+    cases = assoc_cases(torch)
+    problems += [c[:5] for c in cases.values()]
     err = 0.0
     for problem in problems:
         ins = [t.to(dev) for t in problem]
@@ -594,8 +624,12 @@ def check_associate(torch, F, SIM, ops, dev) -> None:
     assign = SIM.associate(*(t.to(dev) for t in tie))[0].tolist()
     if assign != [1, 2]:
         fail(f"associate tie: {assign}, want the lowest index first [1, 2]")
-    print(f"associate exact at {ASSOC_SHAPES}, K=0, a masked query and a "
-          f"tie; sim within {err:.3g}", flush=True)
+    for name, (*problem, want) in cases.items():
+        got = SIM.associate(*(t.to(dev) for t in problem))[0].tolist()
+        if got != want:
+            fail(f"associate {name}: {got}, want {want}")
+    print(f"associate exact at {ASSOC_SHAPES}, K=0, a masked query, a tie "
+          f"and {sorted(cases)}; sim within {err:.3g}", flush=True)
 
 
 def qkv(torch, g, shape, dtype, dev):
@@ -809,6 +843,26 @@ def associate_bound_ms(M: int, K: int, D: int) -> tuple:
     ops = 2 * M * K * D
     t_b, t_o = nbytes / HBM_BYTES_S, ops / F32_FLOP_S
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def time_shapes(torch, inputs: dict, counts: dict, kernel, bound,
+                reps: int) -> dict:
+    """Per main-path shape (``inputs``: shape -> one recorded input, the
+    tensors then the keywords; ``counts``: shape -> launches on the main
+    paths): the kernel's stream ms on that input, its bound and the
+    bound's share of the time; and the run's sums, launches x ms."""
+    rows = []
+    for shape in sorted(inputs):
+        *ts, kw = inputs[shape]
+        ms = device_ms(torch, lambda: kernel(*ts, **kw), reps)
+        b_ms, by = bound(*shape)
+        rows.append({"shape": list(shape), "launches": counts[shape],
+                     "ms": ms, "bound_ms": b_ms, "bound_by": by,
+                     "share_of_bound": b_ms / ms})
+    run = {key: sum(r["launches"] * r[key] for r in rows)
+           for key in ("ms", "bound_ms")}
+    run["launches"] = sum(r["launches"] for r in rows)
+    return {"run": run, "shapes": rows}
 
 
 def time_pixel_kernels(torch, F, FD, MO, PC, dev, recorders: dict,
@@ -1415,9 +1469,10 @@ def main() -> None:
     smoke_cpu_s = time.perf_counter() - t0
     if report_view(rs_cuda) != report_view(rs_cpu):
         fail("metropolis smoke report differs between cuda and cpu")
-    zero_counts()
-    r1 = run_query(dataclasses.replace(ssc, superstep=1), device="cuda")
-    k1_counts = read_counts()
+    with Recorder(SS, "superstep") as ss_k1:
+        zero_counts()
+        r1 = run_query(dataclasses.replace(ssc, superstep=1), device="cuda")
+        k1_counts = read_counts()
     launch_keys = ("kernel_launches", "launches_per_tick", "supersteps")
     v128, v1 = report_view(rs_cuda), report_view(r1)
     if ({k: v for k, v in v1[0].items() if k not in launch_keys}
@@ -1557,24 +1612,61 @@ def main() -> None:
         {"pixel_cascade": pc_rec, "framediff": fd_rec, "morph3x3": mo_rec},
         {"pixel_city": pixel_counts, "pixel_city_staged": staged_counts})
     # the scan superstep: every recorded metropolis slab re-checked bit for
-    # bit, the largest (the cap slab where the run reaches it) timed
-    ss_calls = ss_full.calls + ss_smoke.calls
+    # bit (the superstep=1 run's first of each shape), every slab shape
+    # timed with its launches, the largest (the cap slab where the run
+    # reaches it) the row's
+    ss_calls = (ss_full.calls + ss_smoke.calls
+                + list(ss_k1.inputs.values()))
     for args in ss_calls:
         same_superstep(torch, SS, args)
+    ss_inputs, ss_counts = {}, {}
+    for rec in (ss_full, ss_smoke, ss_k1):
+        for shape, n in rec.counts.items():
+            ss_inputs.setdefault(shape, rec.inputs[shape])
+            ss_counts[shape] = ss_counts.get(shape, 0) + n
+    ss_shapes = time_shapes(torch, ss_inputs, ss_counts, SS.superstep,
+                            superstep_bound_ms, 100)
+    print("superstep slabs (S, R, N): launches, kernel ms, bytes bound ms, "
+          "share of the bound: " + "; ".join(
+              f"{tuple(r['shape'])} {r['launches']} {r['ms']:.5f} "
+              f"{r['bound_ms']:.5f} {r['share_of_bound']:.3f}"
+              for r in ss_shapes["shapes"]), flush=True)
+    print(f"superstep device ms per metropolis runs "
+          f"({ss_shapes['run']['launches']} launches over "
+          f"{len(ss_shapes['shapes'])} slab shapes): kernel "
+          f"{ss_shapes['run']['ms']:.4f}, bound "
+          f"{ss_shapes['run']['bound_ms']:.4f}", flush=True)
     *ss_in, ss_kw = max(ss_full.calls, key=lambda a: a[0].numel())
     ss_ms = device_ms(torch, lambda: SS.superstep(*ss_in, **ss_kw), 100)
     ss_plain = device_ms(torch, lambda: SS.superstep_torch(*ss_in, **ss_kw),
                          5)
     ss_bound, ss_by = superstep_bound_ms(*ss_in[0].shape)
-    # the association: every recorded track input re-checked, the largest
-    # timed; the library yardstick is the score step alone
+    # the association: every recorded track input re-checked, every
+    # (M, K, D) timed with its launches, the largest the row's; the
+    # library yardstick is the score step alone
     assoc_calls = [c for rec in assoc_recs.values() for c in rec.calls]
     a_err = 0.0
-    for *ins, _ in assoc_calls:
-        a_err = max(a_err, assoc_diff(torch, SIM.associate(*ins),
-                                      SIM.associate_torch(*ins)))
+    a_inputs, a_counts = {}, {}
+    for call in assoc_calls:
+        emb, trk = call[0], call[1]
+        a_err = max(a_err, assoc_diff(torch, SIM.associate(*call[:-1]),
+                                      SIM.associate_torch(*call[:-1])))
+        shape = (emb.shape[0], trk.shape[0], emb.shape[1])
+        a_inputs.setdefault(shape, call)
+        a_counts[shape] = a_counts.get(shape, 0) + 1
     if not a_err <= SIM_ATOL:
         fail(f"associate sim differs by {a_err} on main-path inputs")
+    a_shapes = time_shapes(torch, a_inputs, a_counts, SIM.associate,
+                           associate_bound_ms, 200)
+    print("associate shapes (M, K, D): launches, kernel ms, bound ms: "
+          + "; ".join(f"{tuple(r['shape'])} {r['launches']} {r['ms']:.5f} "
+                      f"{r['bound_ms']:.3g}" for r in a_shapes["shapes"]),
+          flush=True)
+    print(f"associate device ms per track runs "
+          f"({a_shapes['run']['launches']} launches over "
+          f"{len(a_shapes['shapes'])} shapes): kernel "
+          f"{a_shapes['run']['ms']:.4f}, bound "
+          f"{a_shapes['run']['bound_ms']:.3g}", flush=True)
     *a_in, _ = max(assoc_calls, key=lambda a: a[0].shape[0] * a[1].shape[0])
     a_ms = device_ms(torch, lambda: SIM.associate(*a_in), 200)
     a_plain = device_ms(torch, lambda: SIM.associate_torch(*a_in), 10)
@@ -1665,6 +1757,12 @@ def main() -> None:
                 "metropolis_smoke": smoke_counts["superstep"],
                 "metropolis_smoke_superstep1": k1_counts["superstep"]}
     a_paths = {n: t["associate_launches"] for n, t in track.items()}
+    if a_shapes["run"]["launches"] != sum(a_paths.values()):
+        fail(f"the recorders saw {a_shapes['run']['launches']} associate "
+             f"calls, the counter {sum(a_paths.values())}")
+    if ss_shapes["run"]["launches"] != sum(ss_paths.values()):
+        fail(f"the recorders saw {ss_shapes['run']['launches']} superstep "
+             f"calls, the counter {sum(ss_paths.values())}")
     kernels = [
         {"name": "triage_fleet", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/triage.cu",
@@ -1694,7 +1792,9 @@ def main() -> None:
          "launches": sum(ss_paths.values()), "launches_by_path": ss_paths,
          "shape": list(ss_in[0].shape), "checked_inputs": len(ss_calls),
          "max_abs_err": 0.0, "ms": ss_ms, "plain_ms": ss_plain,
-         "bound_ms": ss_bound, "bound_by": ss_by, "library_ms": None},
+         "bound_ms": ss_bound, "bound_by": ss_by, "library_ms": None,
+         "metropolis_runs": ss_shapes["run"],
+         "slab_shapes": ss_shapes["shapes"]},
         {"name": "associate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/associate.cu",
          "replaces": "src/repro/kernels/similarity.py:96",
@@ -1702,7 +1802,8 @@ def main() -> None:
          "shape": [am, ak, ad], "checked_inputs": len(assoc_calls),
          "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib,
-         "library": "torch.matmul(emb, trk.T): the score step only"},
+         "library": "torch.matmul(emb, trk.T): the score step only",
+         "track_runs": a_shapes["run"], "track_shapes": a_shapes["shapes"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:74",

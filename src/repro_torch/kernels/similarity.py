@@ -8,10 +8,12 @@ order, a crop taking its best unclaimed track when that score clears the
 crop's own floor.
 
 * ``associate`` is the wrapper: CUDA tensors launch the hand-written
-  kernel ``csrc/associate.cu`` (one block, one thread per track and
-  greedy step, f32 FMA dots, the claimed flags in shared memory) and bump
-  ``LAUNCHES``; CPU tensors run ``associate_torch``.  There is no
-  fallback between the two.
+  kernel ``csrc/associate.cu`` (one block: a parallel pass scores a tile
+  of crop rows into shared memory with f32 FMA dots and keeps each row's
+  best and runner-up, then one warp runs the greedy claims, rescanning a
+  row only where earlier crops claimed both) and bump ``LAUNCHES``; CPU
+  tensors run ``associate_torch``.  There is no fallback between the
+  two.
 * ``associate_torch`` is the plain PyTorch version: the score matrix in
   one f32 matmul, then a Python loop over the crops.
 
@@ -28,8 +30,9 @@ from repro_torch.kernels import runtime
 NEG_INF = -1e30
 #: kernel launches made by ``associate`` (a CPU call never counts)
 LAUNCHES = 0
-#: the kernel keeps one claimed flag a track in the 48 KB of shared memory
-#: a block gets without opting in: the largest bucketed K that fits
+#: the kernel keeps at least one K-long f32 score row, a claimed bit a
+#: track and a staged chunk of tracks in the 227 KB of shared memory a
+#: Hopper block can opt in to: the largest bucketed K that fits
 MAX_TRACKS = 1 << 15
 
 
@@ -93,7 +96,7 @@ def associate(emb: torch.Tensor, trk: torch.Tensor, crop_q: torch.Tensor,
         raise ValueError(f"associate: empty emb {tuple(emb.shape)}")
     if K > MAX_TRACKS:
         raise ValueError(f"associate: at most {MAX_TRACKS} tracks a launch "
-                         f"(one shared-memory flag each), got {K}")
+                         f"(a score row of them in shared memory), got {K}")
     emb, trk, crop_q, trk_q, thr = (t.contiguous() for t in
                                     (emb, trk, crop_q, trk_q, thr))
     assign = torch.empty((M,), dtype=torch.int32, device=emb.device)

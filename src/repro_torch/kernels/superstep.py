@@ -6,8 +6,10 @@ the row had items, and every tick's row is triaged against that tick's
 thresholds.
 
 * ``superstep`` is the wrapper: CUDA tensors launch the hand-written
-  kernel ``csrc/superstep.cu`` (one warp per row, thresholds carried in
-  registers, ``csrc/triage_row.cuh``'s row triage) and bump ``LAUNCHES``;
+  kernel ``csrc/superstep.cu`` (thresholds carried in registers; for N <=
+  32 a warp packs 32/W rows of W >= N lanes with a segmented-ballot
+  prefix, for wider rows a warp walks one row in 32-lane chunks with
+  ``csrc/triage_row.cuh``'s row triage) and bump ``LAUNCHES``;
   CPU tensors run ``superstep_torch``.  There is no fallback between the
   two: a CUDA tensor the kernel cannot take raises.
 * ``superstep_torch`` is the plain PyTorch version: a Python loop over S
@@ -94,7 +96,9 @@ def superstep(conf: torch.Tensor, th0: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"superstep: empty conf {tuple(conf.shape)}")
     conf, th0, drain, gains = (t.contiguous()
                                for t in (conf, th0, drain, gains))
-    mask = mask.to(torch.uint8).contiguous()
+    # a bool tensor is one 0/1 byte an element: the kernel reads it as is
+    mask = (mask.view(torch.uint8) if mask.dtype == torch.bool
+            else mask).contiguous()
     routes = torch.empty((S, R, N), dtype=torch.int32, device=conf.device)
     slots = torch.empty((S, R, N), dtype=torch.int32, device=conf.device)
     ths = torch.empty((S, R, 2), dtype=torch.float32, device=conf.device)

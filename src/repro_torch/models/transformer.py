@@ -113,19 +113,17 @@ def classify(cfg: ModelConfig, params: Params,
 
 
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-               device="cpu") -> Cache:
+               dtype: torch.dtype = torch.float32, device="cpu") -> Cache:
     """An empty decode cache: ``pos`` (B,) at 0, ``kpos`` (B, W) at -1 (no
-    slot written), and per layer f32 K/V (L, B, W, KV, hd) zeros, in the
-    attention's (B, S, KV, hd) layout."""
+    slot written), and per layer K/V (L, B, W, KV, hd) zeros of ``dtype``,
+    in the attention's (B, S, KV, hd) layout."""
     shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
              cfg.head_dim)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "kpos": torch.full((batch, cache_len), -1, dtype=torch.int32,
                                device=device),
-            "layers": {"k": torch.zeros(shape, dtype=torch.float32,
-                                        device=device),
-                       "v": torch.zeros(shape, dtype=torch.float32,
-                                        device=device)}}
+            "layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,

@@ -78,14 +78,17 @@ class DecodeEngine:
     ``device``.  The engine's cache is updated in place."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int,
-                 cache_len: int, device="cuda"):
+                 cache_len: int, window: Optional[int] = None,
+                 device="cuda"):
         M.check_dense(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _on(self.device, params)
         self.slots = [SlotState() for _ in range(slots)]
         self.cache_len = cache_len
-        self.cache = T.make_cache(cfg, slots, cache_len, device=self.device)
+        self.window = window
+        self.cache = T.make_cache(cfg, slots, cache_len, dtype=torch.float32,
+                                  device=self.device)
         self.tokens = torch.zeros((slots,), dtype=torch.int32,
                                   device=self.device)
         self.ticks = 0
@@ -100,7 +103,8 @@ class DecodeEngine:
                                          dtype=torch.long,
                                          device=self.device)[None]
                 logits, cache1 = T.prefill(self.cfg, self.params, prompt,
-                                           cache_len=self.cache_len)
+                                           cache_len=self.cache_len,
+                                           window=self.window)
                 first = int(greedy(logits[0]))
                 self._write_slot_cache(i, cache1)
                 self.tokens[i] = first
@@ -137,7 +141,7 @@ class DecodeEngine:
         (rid, generated_tokens) pairs."""
         self.ticks += 1
         logits, self.cache = T.decode_step(self.cfg, self.params, self.cache,
-                                           self.tokens)
+                                           self.tokens, window=self.window)
         self.tokens = greedy(logits)
         nxt = self.tokens.tolist()
         done = []

@@ -24,6 +24,8 @@ from repro_torch.kernels import superstep as SS
 from repro_torch.kernels import triage as T
 from repro_torch.models import meta as M
 from repro_torch.serving.engine import CascadeServer, Request
+from torch_kernel_cases import (ASSOC_CASES, SUPERSTEP_WIDTH_CASES,
+                                superstep_slab)
 
 pytestmark = pytest.mark.cuda
 
@@ -135,6 +137,44 @@ def test_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
                            v)
+
+
+@pytest.mark.parametrize("name", sorted(ASSOC_CASES))
+def test_associate_kernel_matches_plain_on_greedy_cases(cuda, name):
+    """The CPU cases of ``tests/test_torch_tracks.py`` on the card: the
+    claim loop's shortcuts give the plain version's greedy order."""
+    *problem, want = ASSOC_CASES[name]
+    ins = [torch.from_numpy(a).to(cuda) for a in problem]
+    got, plain = SIM.associate(*ins), SIM.associate_torch(*ins)
+    assert got[0].tolist() == plain[0].tolist() == want
+    assert float((got[1] - plain[1]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("m,k,d", [(128, 128, 32), (1024, 128, 32),
+                                   (64, 4096, 32), (40, 300, 72),
+                                   (24, 50, 37)])
+def test_associate_kernel_matches_plain_across_tiles(cuda, m, k, d):
+    """Crop rows over several shared-memory tiles, tracks over several
+    staged chunks, D over several column chunks or off the 16-byte
+    loads."""
+    ins = [x.to(cuda) for x in _problem(m + k + d, m, k, d)]
+    ins[4] = torch.linspace(-0.5, 0.9, m, device=cuda)
+    got, plain = SIM.associate(*ins), SIM.associate_torch(*ins)
+    assert torch.equal(got[0], plain[0])
+    assert float((got[1] - plain[1]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("S,R,N,capacity,mask_kind", SUPERSTEP_WIDTH_CASES)
+def test_superstep_kernel_matches_plain_at_every_row_width(
+        cuda, S, R, N, capacity, mask_kind):
+    """The CPU cases of ``tests/test_torch_superstep.py`` on the card:
+    every packed width and the chunk walk, bit for bit."""
+    ins = [torch.from_numpy(a).to(cuda) for a in
+           superstep_slab(S * 7 + R * 3 + N, S, R, N, mask_kind)]
+    got = SS.superstep(*ins, capacity=capacity)
+    want = SS.superstep_torch(*ins, capacity=capacity)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,hd,dtype,causal", [

@@ -33,6 +33,7 @@ from repro.core.thresholds import ThresholdState as RefThresholdState
 from repro.models import meta as JM
 from repro.models import transformer as JT
 from repro.serving.engine import CascadeServer as RefCascadeServer
+from repro.serving.engine import DecodeEngine as RefDecodeEngine
 from repro.serving.engine import Request as RefRequest
 from repro_torch import bridge
 from repro_torch.configs import get_config
@@ -410,6 +411,59 @@ def test_cascade_server_edge_shortcuts(port_models):
     assert all(r.route in ("edge_accept", "edge_reject")
                for r in results.values())
     assert srv.engine.ticks == 0        # cloud never ran
+
+
+@pytest.mark.parametrize("window", [None, 6])
+def test_decode_engine_matches_reference_with_and_without_window(window):
+    """The port's ``DecodeEngine(..., window=)`` against the reference's
+    on bridged weights: three prompts longer than the window, decoded in
+    one batch, give the same greedy tokens and the same K/V cache.  The
+    reduced model's greedy tokens hardly depend on the context, so the
+    cache (the second layer's K/V follow the first layer's windowed
+    attention) is what shows the window was applied."""
+    ref_cfg = ref_get_config("qwen1.5-0.5b").reduced()
+    jp, tp = _bridged(ref_cfg, jax.random.PRNGKey(5), 3)
+    cfg = _port_cfg(ref_cfg)
+    prompts = [_tokens(40 + i, (n,), cfg.vocab_size)
+               for i, n in enumerate((10, 14, 9))]
+
+    def drive(engine, request):
+        for i, p in enumerate(prompts):
+            assert engine.admit(request(rid=i, tokens=p, max_new=6))
+        outs = {}
+        while any(not slot.free for slot in engine.slots):
+            for rid, gen in engine.step():
+                outs[rid] = [int(t) for t in gen]
+        return outs, {name: np.asarray(engine.cache["layers"][name])
+                      for name in ("k", "v")}
+
+    def reference(w):
+        return drive(RefDecodeEngine(ref_cfg, jp, slots=3, cache_len=24,
+                                     window=w), RefRequest)
+
+    got, got_kv = drive(DecodeEngine(cfg, tp, slots=3, cache_len=24,
+                                     window=window, device="cpu"), Request)
+    want, want_kv = reference(window)
+    assert got == want and sorted(got) == [0, 1, 2]
+    assert all(len(gen) == 6 for gen in got.values())
+    for name in ("k", "v"):
+        np.testing.assert_allclose(got_kv[name], want_kv[name], atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+    if window is not None:       # the window changes what the cache holds
+        _, free_kv = reference(None)
+        assert np.abs(free_kv["k"] - want_kv["k"]).max() > 1e-3
+
+
+def test_make_cache_takes_the_reference_dtype_keyword():
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    cache = T.make_cache(cfg, 2, 8, dtype=torch.bfloat16)
+    want = JT.make_cache(ref_get_config("qwen1.5-0.5b").reduced(), 2, 8,
+                         dtype=jnp.bfloat16)
+    for name in ("k", "v"):
+        assert cache["layers"][name].dtype == torch.bfloat16
+        assert tuple(cache["layers"][name].shape) == \
+            tuple(want["layers"][name].shape)
+    assert T.make_cache(cfg, 2, 8)["layers"]["k"].dtype == torch.float32
 
 
 def test_engine_default_device_is_the_card(port_models):

@@ -25,6 +25,8 @@ from repro_torch.system import (
     multi_query_city,
     run_query,
 )
+from torch_kernel_cases import SUPERSTEP_WIDTH_CASES
+from torch_kernel_cases import superstep_slab as _slab
 
 # summary keys that legitimately differ between segmentations of the same
 # run: one fused launch replaces many per-tick launches
@@ -58,25 +60,6 @@ def _pair(base, ka, kb):
 # --- the plain version vs the reference's fused program -----------------------
 
 
-def _slab(seed, S, R, N, mask_kind="random"):
-    """A seeded superstep input: confidences with pad lanes, start
-    thresholds, a tick mask, drains on both sides of the interval."""
-    rng = np.random.default_rng(seed)
-    conf = rng.uniform(0.0, 1.0, (S, R, N)).astype(np.float32)
-    lengths = rng.integers(0, N + 1, (S, R))
-    conf[np.arange(N)[None, None, :] >= lengths[..., None]] = -1.0
-    th0 = np.stack([rng.uniform(0.5, 1.0, R), rng.uniform(0.0, 0.45, R)],
-                   axis=1).astype(np.float32)
-    mask = {"random": rng.uniform(0, 1, (S, R)) < 0.6,
-            "off": np.zeros((S, R), bool),
-            "on": np.ones((S, R), bool)}[mask_kind]
-    interval = 0.1
-    drain = rng.uniform(0.0, 3.0 * interval, R).astype(np.float32)
-    drain[: R // 4] = interval                       # exactly at the gate
-    gains = np.asarray([0.05, 0.2, 0.3, interval], np.float32)
-    return conf, th0, mask, drain, gains
-
-
 @pytest.mark.parametrize("S,R,N,capacity,mask_kind", [
     (1, 1, 8, 8, "random"),
     (2, 16, 8, 8, "random"),
@@ -99,6 +82,25 @@ def test_superstep_torch_matches_reference_program(S, R, N, capacity,
     for g, w, what in zip(got, want, ("routes", "slots", "ths")):
         assert g.numpy().dtype == w.dtype, what
         np.testing.assert_array_equal(g.numpy(), w, err_msg=what)
+
+
+@pytest.mark.parametrize("S,R,N,capacity,mask_kind", SUPERSTEP_WIDTH_CASES)
+def test_superstep_torch_matches_reference_at_every_row_width(
+        S, R, N, capacity, mask_kind):
+    """The widths the kernel packs 32/W rows a warp for (N = 1, 3, 16, 32)
+    and walks in 32-lane chunks (N = 33, 64), R not a multiple of the
+    rows a warp packs, odd S: bit for bit against the reference."""
+    conf, th0, mask, drain, gains = _slab(S * 7 + R * 3 + N, S, R, N,
+                                          mask_kind)
+    want = [np.asarray(a) for a in _superstep_fn(capacity, 1)(
+        conf, th0, mask, drain, gains)]
+    got = SS.superstep_torch(*(torch.from_numpy(a) for a in
+                               (conf, th0, mask, drain, gains)),
+                             capacity=capacity)
+    for g, w, what in zip(got, want, ("routes", "slots", "ths")):
+        assert g.numpy().dtype == w.dtype, what
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=what)
+    assert bool((got[1] >= 0).any()), "no escalation got a slot"
 
 
 def test_superstep_wrapper_on_the_cpu_is_the_plain_version():

@@ -22,6 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import similarity as SIM
 from repro_torch.system import (SCENARIOS, crowd_flow, run_query,
                                 single_edge, vehicle_pursuit)
+from torch_kernel_cases import ASSOC_CASES
 
 #: sim tolerance, plain version vs reference: the same f32 dots summed in
 #: another order (torch's CPU matmul vs XLA's)
@@ -125,6 +126,42 @@ def test_associate_all_masked_query():
     a, s = ops.associate_tracks(emb, trk, cq, tq, thr, device="cpu")
     assert a[0] == -1 and bool(s[0] == SIM.NEG_INF)
     assert a[1] >= 0 and a[2] >= 0 and a[1] != a[2]
+
+
+@pytest.mark.parametrize("name", sorted(ASSOC_CASES))
+def test_associate_greedy_cases_match_the_reference(name):
+    """The greedy orders the kernel's claim shortcuts rely on: a rescan
+    after a claim, a chain contending for one track, a tie that appears
+    only after a claim, a query without tracks, every track masked under
+    a floor below NEG_INF.  The port's plain version and its wrapper
+    against the reference's kernel (interpret mode) and its oracle."""
+    *problem, want = ASSOC_CASES[name]
+    ap, sp = (np.asarray(a) for a in ref_ops.associate_tracks(*problem))
+    ar, sr = ref.associate_tracks_ref(*problem)
+    np.testing.assert_array_equal(ap, want)
+    np.testing.assert_array_equal(ar, want)
+    for assign, sim in (
+            ops.associate_tracks(*problem, device="cpu"),
+            SIM.associate_torch(*_tensors(*problem))):
+        np.testing.assert_array_equal(assign.numpy(), want)
+        np.testing.assert_allclose(sim.numpy(), sp, rtol=SIM_ATOL,
+                                   atol=SIM_ATOL)
+        np.testing.assert_allclose(sim.numpy(), sr, rtol=SIM_ATOL,
+                                   atol=SIM_ATOL)
+
+
+def test_associate_many_crop_tiles_match_the_reference():
+    """1,024 crops against 128 tracks: a score matrix the kernel splits
+    into several shared-memory tiles of crop rows, whose claims carry from
+    tile to tile."""
+    rng = np.random.default_rng(11)
+    problem = _rand_problem(rng, 1024, 128, 32)
+    ap, sp = (np.asarray(a) for a in ref_ops.associate_tracks(*problem))
+    assign, sim = SIM.associate_torch(*_tensors(*problem))
+    np.testing.assert_array_equal(assign.numpy(), ap)
+    np.testing.assert_allclose(sim.numpy(), sp, rtol=SIM_ATOL,
+                               atol=SIM_ATOL)
+    assert (assign >= 0).sum() == 128    # every track taken, most crops not
 
 
 def test_associate_wrapper_on_the_cpu_does_not_count():

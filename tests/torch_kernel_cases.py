@@ -1,0 +1,80 @@
+"""Inputs shared by the port's CPU tests and their cuda-marked twins.
+
+The association cases are the greedy orders that the association
+kernel's shortcuts (take the precomputed best while it is unclaimed,
+rescan otherwise) must not change; the superstep cases cover every row
+width the superstep kernel packs into a warp and the chunk walk beyond
+32 lanes.  Plain numpy: ``tests/test_torch_cuda.py`` imports no JAX.
+"""
+import numpy as np
+
+_EYE = np.eye(4, dtype=np.float32).tolist()
+
+
+def _case(trk, emb, cq, tq, thr, want):
+    return (np.asarray(emb, np.float32), np.asarray(trk, np.float32),
+            np.asarray(cq, np.int32), np.asarray(tq, np.int32),
+            np.asarray(thr, np.float32), want)
+
+
+#: name -> (emb, trk, crop_q, trk_q, thr, the plain version's assign)
+ASSOC_CASES = {
+    # crop 0 claims track 0; crop 1's best is also track 0, so it rescans
+    # and takes its next best, track 1
+    "rescan_after_claim": _case(
+        _EYE, [[1, 0, 0, 0], [0.9, 0.4, 0.1, 0]], [0, 0], [0, 0, 0, 0],
+        [0.0, 0.0], [0, 1]),
+    # five crops chase track 0 with falling scores: each takes the next
+    # free track, and the fifth finds every track claimed
+    "chain_contends_for_one_track": _case(
+        _EYE, [[1, 0.5 - 0.1 * i, 0.3 - 0.1 * i, 0.05] for i in range(5)],
+        [0] * 5, [0] * 4, [-0.5] * 5, [0, 1, 2, 3, -1]),
+    # tracks 1 and 2 tie for crop 1 only once crop 0 has taken track 0:
+    # the lower index wins
+    "tie_only_after_claim": _case(
+        [[1, 0, 0, 0], [0, 1, 0, 0], [0, 1, 0, 0]],
+        [[1, 0, 0, 0], [0.8, 0.6, 0, 0], [0.8, 0.6, 0, 0]], [0, 0, 0],
+        [0, 0, 0], [0.5, 0.5, 0.5], [0, 1, 2]),
+    # query 3 owns no track: crop 0 resolves at once, claiming nothing
+    "query_without_tracks": _case(
+        _EYE, [[1, 0, 0, 0], [0, 0, 1, 0], [0, 1, 0, 0]], [3, 1, 0],
+        [0, 0, 1, 1], [-0.9, -0.9, -0.9], [-1, 2, 1]),
+    # every track masked and a floor below NEG_INF: the first maximum,
+    # track 0, matches at NEG_INF and is claimed, so crop 1, whose best it
+    # was, rescans
+    "all_masked_floor_below_neg_inf": _case(
+        _EYE, [[1, 0, 0, 0], [1, 0.5, 0, 0]], [5, 0], [0, 0, 0, 0],
+        [-2e30, 0.0], [0, 1]),
+}
+
+#: (S, R, N, capacity, mask kind): N = 1, 3, 16 and 32 pack 32, 8, 2 and
+#: 1 rows a warp, N = 33 and 64 walk 32-lane chunks; R is not a multiple
+#: of the rows a warp packs, and S is odd
+SUPERSTEP_WIDTH_CASES = [
+    (7, 101, 1, 1, "random"),
+    (9, 37, 3, 2, "random"),
+    (5, 203, 16, 4, "on"),
+    (3, 66, 32, 8, "random"),
+    (5, 19, 33, 3, "random"),
+    (3, 66, 64, 40, "on"),
+    (33, 1021, 8, 8, "random"),
+]
+
+
+def superstep_slab(seed, S, R, N, mask_kind="random"):
+    """A seeded superstep input: confidences with pad lanes, start
+    thresholds, a tick mask, drains on both sides of the interval."""
+    rng = np.random.default_rng(seed)
+    conf = rng.uniform(0.0, 1.0, (S, R, N)).astype(np.float32)
+    lengths = rng.integers(0, N + 1, (S, R))
+    conf[np.arange(N)[None, None, :] >= lengths[..., None]] = -1.0
+    th0 = np.stack([rng.uniform(0.5, 1.0, R), rng.uniform(0.0, 0.45, R)],
+                   axis=1).astype(np.float32)
+    mask = {"random": rng.uniform(0, 1, (S, R)) < 0.6,
+            "off": np.zeros((S, R), bool),
+            "on": np.ones((S, R), bool)}[mask_kind]
+    interval = 0.1
+    drain = rng.uniform(0.0, 3.0 * interval, R).astype(np.float32)
+    drain[: R // 4] = interval                       # exactly at the gate
+    gains = np.asarray([0.05, 0.2, 0.3, interval], np.float32)
+    return conf, th0, mask, drain, gains
