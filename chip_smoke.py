@@ -11,9 +11,12 @@ Phases, each fatal on failure:
    (all sources at once) and print ptxas's register/shared-memory report;
 3. hold each kernel against its plain PyTorch version on the card at
    fixed edge-case shapes: triage (3D Q=3 fold, one row, capacity
-   overflow, all-pad rows, NaN lanes, 2^17 rows) must agree exactly, the
-   Platt fit (R in {4, 64} x N=256 with degenerate rows) within
-   ``CAL_ATOL`` with exact counts; the pixel cascade, framediff, dilate
+   overflow, all-pad rows, NaN lanes, 2^17 rows, every width of
+   ``TRIAGE_WIDTHS`` at every row count of ``TRIAGE_ROWS`` with capacity
+   0 and overflow, pointers the vector loads cannot take) must agree
+   exactly, the Platt fit (R in {4, 64} x ``CALIBRATE_WIDTHS``, both of
+   its paths, with degenerate rows) within ``CAL_ATOL`` with exact
+   counts; the pixel cascade, framediff, dilate
    and erode exactly, at ``PIXEL_SHAPES``, on sparse motion, on a static
    scene and at 1080p (``HD``), with the fused cascade also held against
    the staged framediff -> dilate -> erode launches; the scan superstep
@@ -74,18 +77,22 @@ Phases, each fatal on failure:
    under the chunked path, under flash (36 launches) and under flash with
    SDPA in the kernel's place: finite logits, and the kernel's drift from
    the chunked path's logits within ``DEEP_DRIFT_RATIO`` x SDPA's;
-10. time each kernel and its plain version on the inputs the main paths
-   gave it (the pixel kernels also at 1080p; flash attention and SDPA at
+10. time the card's launch floor (an empty kernel), then each kernel and
+   its plain version on the inputs the main paths gave it (triage and
+   calibrate at every recorded shape with its launches, calibrate also at
+   ``CALIBRATE_WIDE``; the pixel kernels also at 1080p; flash attention
+   and SDPA at
    every prefill length of the serving run, summed over its launches,
    and at qwen3-8b's prefill, in f32 and in bf16; the superstep at every
    slab shape of the three metropolis runs and the association at every
    (M, K, D) of the track runs, each with its launches, bound and the
    run's sum), and print
-   ``{"kernels": [...]}`` (per kernel: launches per path, max error
-   against the plain version, kernel/plain ms with the stream pre-loaded,
-   the bound from the bytes and operations of the timed inputs, and the
-   one PyTorch call that computes the same function, where there is
-   one), then, last, ``{"ok": true, "device": {...}}``.
+   ``{"kernels": [...], "launch_floor_ms": ...}`` (per kernel: launches
+   per path, max error against the plain version, kernel/plain ms with
+   the stream pre-loaded and the kernel's ms over the floor, the bound
+   from the bytes and operations of the timed inputs, and the one
+   PyTorch call that computes the same function, where there is one),
+   then, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, where torch finds no CUDA device or
 the port's sources are not beside this script.  Imports nothing of JAX.
@@ -152,6 +159,19 @@ PIXEL_OPS = {"pixel_cascade": 22 + 18, "framediff": 22, "morph3x3": 9}
 #: a pending kernel that holds the stream while the host enqueues a timed
 #: loop, so the events time the device, not the Python launch path
 HOLD_CYCLES = 500_000_000
+#: triage widths and row counts held against the plain version: one to
+#: four of a row's lanes a lane (N <= 128), the chunk walk (200, 1024),
+#: widths off the buckets (13, 21, 33, 200) as ``ops.triage`` passes
+#: them, and R from one row to 2^17
+TRIAGE_WIDTHS = [1, 2, 3, 8, 13, 16, 21, 32, 33, 64, 80, 100, 128, 200,
+                 1024]
+TRIAGE_ROWS = [1, 7, 64, 1 << 17]
+#: calibrate widths: the warp-a-row path (8..256) and the block path
+#: (257..``MAX_LANES``)
+CALIBRATE_WIDTHS = [8, 16, 64, 100, 200, 256, 257, 2048]
+#: (R, N) calibrate shape timed beside the main paths': the feedback
+#: window's full width (``feedback_window`` = 256), eight edges
+CALIBRATE_WIDE = (8, 256)
 #: sim tolerance, association kernel vs plain version: the same f32 dots,
 #: a chain of FMAs on the card and a matmul in the plain version
 #: (``tests/test_track_query.py``'s tolerance)
@@ -278,10 +298,10 @@ def check_triage(torch, T, ops, dev) -> None:
 
     def same(got, want, what):
         for a, b in zip(got, want):
-            if not torch.equal(a.cpu(), b.cpu()):
+            if not torch.equal(a, b.to(a.device)):
                 fail(f"triage {what}: kernel and plain version differ")
 
-    def case(rows, n, capacity, what, pad_rows=0, nan=False):
+    def case(rows, n, capacities, what, pad_rows=0, nan=False, offset=0):
         conf = torch.rand((rows, n), generator=g)
         if pad_rows:
             conf[-pad_rows:] = -1.0
@@ -290,14 +310,31 @@ def check_triage(torch, T, ops, dev) -> None:
         thr = torch.stack([0.5 + 0.5 * torch.rand(rows, generator=g),
                            0.45 * torch.rand(rows, generator=g)], dim=1)
         conf, thr = conf.to(dev), thr.to(dev)
-        same(T.triage_fleet(conf, thr, capacity=capacity),
-             T.triage_fleet_torch(conf, thr, capacity=capacity), what)
+        if offset:  # the same values `offset` floats into a larger buffer
+            conf = torch.cat([conf.new_zeros(offset), conf.flatten()])[
+                offset:].view(rows, n)
+            thr = torch.cat([thr.new_zeros(offset), thr.flatten()])[
+                offset:].view(rows, 2)
+        for cap in capacities:
+            same(T.triage_fleet(conf, thr, capacity=cap),
+                 T.triage_fleet_torch(conf, thr, capacity=cap),
+                 f"{what} capacity {cap}")
 
-    case(64, 32, 64, "64x32")
-    case(64, 200, 4, "capacity overflow")
-    case(16, 40, 8, "all-pad rows", pad_rows=5)
-    case(8, 33, 8, "NaN lanes", nan=True)
-    case(1 << 17, 8, 8, "2^17 rows")
+    case(64, 32, (64,), "64x32")
+    case(64, 200, (4,), "capacity overflow")
+    case(16, 40, (8,), "all-pad rows", pad_rows=5)
+    case(8, 33, (8,), "NaN lanes", nan=True)
+    case(1 << 17, 8, (8,), "2^17 rows")
+    # every path of the kernel (a row's lanes in a lane, chunk walk)
+    # at widths on and off the buckets, with NaN lanes, an all-pad row,
+    # capacity 0 and overflow
+    for n in TRIAGE_WIDTHS:
+        for rows in TRIAGE_ROWS:
+            case(rows, n, (0, max(1, n // 4), n), f"{rows}x{n}",
+                 pad_rows=int(rows > 1), nan=n >= 3)
+    # pointers the vector loads and the float2 thresholds cannot take
+    case(64, 64, (0, 16, 64), "unaligned 64x64", offset=1)
+    case(7, 128, (40,), "unaligned 7x128", offset=2)
     conf3 = torch.rand((3, 5, 21), generator=g)
     thr3 = torch.stack([0.5 + 0.5 * torch.rand((3, 5), generator=g),
                         0.45 * torch.rand((3, 5), generator=g)], dim=2)
@@ -331,23 +368,27 @@ def label_rows(torch, rows: int, n: int, seed: int):
 
 def check_calibrate(torch, C, dev) -> None:
     """Kernel vs plain version on the card: counts exact, params within
-    CAL_ATOL, degenerate rows exactly (1, 0)."""
-    for rows in (4, 64):
-        scores, truths = (t.to(dev) for t in label_rows(torch, rows, 256,
-                                                        rows))
-        kp, kc = C.calibrate_fleet(scores, truths, iters=8, min_count=8)
-        pp, pc = C.calibrate_fleet_torch(scores, truths, iters=8,
-                                         min_count=8)
-        if not torch.equal(kc.cpu(), pc.cpu()):
-            fail(f"calibrate R={rows}: counts differ")
-        err = float((kp - pp).abs().max())
-        if not err <= CAL_ATOL:
-            fail(f"calibrate R={rows}: params differ by {err} > {CAL_ATOL}")
-        ident = torch.tensor([1.0, 0.0], device=dev)
-        for r in (1, 2, rows - 1):
-            if not torch.equal(kp[r], ident):
-                fail(f"calibrate R={rows}: degenerate row {r} fitted to "
-                     f"{kp[r].tolist()}, not the identity")
+    CAL_ATOL, degenerate rows exactly (1, 0), on both paths (a warp a row
+    up to 256 lanes, a block a row beyond)."""
+    for n in CALIBRATE_WIDTHS:
+        for rows in (4, 64):
+            seed = rows if n == 256 else rows * n
+            scores, truths = (t.to(dev) for t in label_rows(torch, rows, n,
+                                                            seed))
+            kp, kc = C.calibrate_fleet(scores, truths, iters=8, min_count=8)
+            pp, pc = C.calibrate_fleet_torch(scores, truths, iters=8,
+                                             min_count=8)
+            what = f"calibrate R={rows} N={n}"
+            if not torch.equal(kc.cpu(), pc.cpu()):
+                fail(f"{what}: counts differ")
+            err = float((kp - pp).abs().max())
+            if not err <= CAL_ATOL:
+                fail(f"{what}: params differ by {err} > {CAL_ATOL}")
+            ident = torch.tensor([1.0, 0.0], device=dev)
+            for r in (1, 2, rows - 1):
+                if not torch.equal(kp[r], ident):
+                    fail(f"{what}: degenerate row {r} fitted to "
+                         f"{kp[r].tolist()}, not the identity")
 
 
 def pixel_frames(torch, g, B: int, H: int, W: int, kind: str = "random"):
@@ -846,11 +887,12 @@ def associate_bound_ms(M: int, K: int, D: int) -> tuple:
 
 
 def time_shapes(torch, inputs: dict, counts: dict, kernel, bound,
-                reps: int) -> dict:
+                reps: int, floor_ms: float) -> dict:
     """Per main-path shape (``inputs``: shape -> one recorded input, the
     tensors then the keywords; ``counts``: shape -> launches on the main
     paths): the kernel's stream ms on that input, its bound and the
-    bound's share of the time; and the run's sums, launches x ms."""
+    bound's share of the time, and the time over ``floor_ms`` (the empty
+    launch's ms); and the run's sums, launches x ms."""
     rows = []
     for shape in sorted(inputs):
         *ts, kw = inputs[shape]
@@ -858,7 +900,8 @@ def time_shapes(torch, inputs: dict, counts: dict, kernel, bound,
         b_ms, by = bound(*shape)
         rows.append({"shape": list(shape), "launches": counts[shape],
                      "ms": ms, "bound_ms": b_ms, "bound_by": by,
-                     "share_of_bound": b_ms / ms})
+                     "share_of_bound": b_ms / ms,
+                     "over_floor_ms": ms - floor_ms})
     run = {key: sum(r["launches"] * r[key] for r in rows)
            for key in ("ms", "bound_ms")}
     run["launches"] = sum(r["launches"] for r in rows)
@@ -1326,6 +1369,7 @@ def main() -> None:
     fe = PixelFrontend(seed=0, device="cuda")
     batches = count_batches(fe.model)
     with Recorder(PC, "pixel_cascade") as pc_rec, \
+            Recorder(T, "triage_fleet") as tri_pixel, \
             StageClock(torch, components, "label_components") as ccl:
         zero_counts()
         t0 = time.perf_counter()
@@ -1568,13 +1612,25 @@ def main() -> None:
     deep = deep_logit_gap(torch, dev)
 
     phase("timing on the main paths' inputs")
-    # the most frequent main-path shape family: time the largest recorded
-    # input of each kernel (every recorded input is also re-checked)
-    tri_inputs = {**tri_drift.inputs, **tri_city.inputs}
-    for conf, thr, kw in tri_inputs.values():
+    # the card's launch floor: triage.cu's empty kernel, the same build,
+    # hold and reps as the kernels it is read against
+    floor_ms = device_ms(torch, lambda: T.empty_launch(dev), 200)
+    print(f"launch floor (empty kernel, one warp): {floor_ms:.5f} ms",
+          flush=True)
+    # triage: every recorded main-path input re-checked, every shape
+    # timed with its launches, city_scale's largest (64, 64) the row's
+    tri_recs = (tri_city, tri_drift, tri_pixel)
+    tri_inputs, tri_counts = {}, {}
+    for rec in tri_recs:
+        for shape, n in rec.counts.items():
+            tri_inputs.setdefault(shape, rec.inputs[shape])
+            tri_counts[shape] = tri_counts.get(shape, 0) + n
+    for conf, thr, kw in (a for rec in tri_recs for a in rec.inputs.values()):
         want = T.triage_fleet_torch(conf, thr, **kw)
         if max_err(T.triage_fleet(conf, thr, **kw), want) != 0.0:
             fail(f"triage differs on a main-path input {tuple(conf.shape)}")
+    tri_shapes = time_shapes(torch, tri_inputs, tri_counts, T.triage_fleet,
+                             triage_bound_ms, 200, floor_ms)
     conf, thr, kw = tri_city.inputs[max(tri_city.inputs,
                                         key=lambda s: s[0] * s[1])]
     t_ms = device_ms(torch, lambda: T.triage_fleet(conf, thr, **kw), 200)
@@ -1583,6 +1639,8 @@ def main() -> None:
     t_err = max_err(T.triage_fleet(conf, thr, **kw),
                     T.triage_fleet_torch(conf, thr, **kw))
     t_bound, t_by = triage_bound_ms(*conf.shape)
+    # calibrate: every recorded input re-checked, every shape and the
+    # feedback window's full width timed, the largest recorded the row's
     cal_err = 0.0
     for scores, truths, ckw in cal_drift.inputs.values():
         kp, kc = C.calibrate_fleet(scores, truths, **ckw)
@@ -1594,11 +1652,24 @@ def main() -> None:
         fail(f"calibrate params differ by {cal_err} on main-path inputs")
     scores, truths, ckw = cal_drift.inputs[max(cal_drift.inputs,
                                                key=lambda s: s[0] * s[1])]
+    wide = tuple(t.to(dev) for t in label_rows(torch, *CALIBRATE_WIDE, 3))
+    cal_shapes = time_shapes(
+        torch, {**cal_drift.inputs, CALIBRATE_WIDE: (*wide, ckw)},
+        {**cal_drift.counts, CALIBRATE_WIDE: 0}, C.calibrate_fleet,
+        lambda r, n: calibrate_bound_ms(r, n, ckw["iters"]), 200, floor_ms)
     c_ms = device_ms(torch, lambda: C.calibrate_fleet(scores, truths, **ckw),
                      200)
     c_plain = device_ms(
         torch, lambda: C.calibrate_fleet_torch(scores, truths, **ckw), 20)
     c_bound, c_by = calibrate_bound_ms(*scores.shape, ckw["iters"])
+    print("triage shapes (R, N): launches, kernel ms, over the floor ms: "
+          + "; ".join(f"{tuple(r['shape'])} {r['launches']} {r['ms']:.5f} "
+                      f"{r['over_floor_ms']:.5f}"
+                      for r in tri_shapes["shapes"])
+          + "\ncalibrate shapes (R, N): " + "; ".join(
+              f"{tuple(r['shape'])} {r['launches']} {r['ms']:.5f} "
+              f"{r['over_floor_ms']:.5f}" for r in cal_shapes["shapes"]),
+          flush=True)
     # the one-row launch (ops.triage / triage_batched, the port of
     # triage_dynamic_pallas): not on the main paths, timed at its bucket
     one = torch.rand((1, 16), device=dev)
@@ -1625,7 +1696,7 @@ def main() -> None:
             ss_inputs.setdefault(shape, rec.inputs[shape])
             ss_counts[shape] = ss_counts.get(shape, 0) + n
     ss_shapes = time_shapes(torch, ss_inputs, ss_counts, SS.superstep,
-                            superstep_bound_ms, 100)
+                            superstep_bound_ms, 100, floor_ms)
     print("superstep slabs (S, R, N): launches, kernel ms, bytes bound ms, "
           "share of the bound: " + "; ".join(
               f"{tuple(r['shape'])} {r['launches']} {r['ms']:.5f} "
@@ -1657,7 +1728,7 @@ def main() -> None:
     if not a_err <= SIM_ATOL:
         fail(f"associate sim differs by {a_err} on main-path inputs")
     a_shapes = time_shapes(torch, a_inputs, a_counts, SIM.associate,
-                           associate_bound_ms, 200)
+                           associate_bound_ms, 200, floor_ms)
     print("associate shapes (M, K, D): launches, kernel ms, bound ms: "
           + "; ".join(f"{tuple(r['shape'])} {r['launches']} {r['ms']:.5f} "
                       f"{r['bound_ms']:.3g}" for r in a_shapes["shapes"]),
@@ -1773,8 +1844,14 @@ def main() -> None:
                               "drifting_city": drift_launches[0],
                               "pixel_city": pixel_counts["triage"]},
          "shape": list(conf.shape), "max_abs_err": t_err,
+         "checked_inputs": sum(len(r.inputs) for r in tri_recs),
          "ms": t_ms, "plain_ms": t_plain, "bound_ms": t_bound,
-         "bound_by": t_by, "library_ms": None},
+         "bound_by": t_by, "library_ms": None,
+         "main_path_runs": tri_shapes["run"],
+         "shapes": tri_shapes["shapes"],
+         "one_row": {"shape": [1, 16], "ms": one_ms, "plain_ms": one_plain,
+                     "bound_ms": triage_bound_ms(1, 16)[0],
+                     "over_floor_ms": one_ms - floor_ms}},
         {"name": "calibrate_fleet", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/calibrate.cu",
          "replaces": "src/repro/kernels/calibrate.py:102",
@@ -1784,7 +1861,9 @@ def main() -> None:
                               "pixel_city": pixel_counts["calibrate"]},
          "shape": list(scores.shape), "max_abs_err": cal_err,
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
-         "bound_by": c_by, "library_ms": None},
+         "bound_by": c_by, "library_ms": None,
+         "main_path_runs": cal_shapes["run"],
+         "shapes": cal_shapes["shapes"]},
         *pixel_rows,
         {"name": "superstep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/superstep.cu",
@@ -1855,12 +1934,11 @@ def main() -> None:
                              "superstep1_bit_identical": True},
         **track,
         "serving": {k: v for k, v in serving.items() if k != "recorder"}},
-        "triage_one_row": {"shape": [1, 16], "ms": one_ms,
-                           "plain_ms": one_plain,
-                           "bound_ms": triage_bound_ms(1, 16)[0]},
         "total_s": time.perf_counter() - t_all}))
+    for row in kernels:
+        row["over_floor_ms"] = row["ms"] - floor_ms
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,8 +16,9 @@ identity (1, 0).  Pad lanes carry score -1.0 and are masked out of every
 sum; pad rows are fully masked and fit to the identity.
 
 * ``calibrate_fleet`` is the wrapper: a CUDA tensor launches the
-  hand-written kernel ``csrc/calibrate.cu`` (one 128-thread block per row)
-  and bumps ``LAUNCHES``; a CPU tensor runs ``calibrate_fleet_torch``.
+  hand-written kernel ``csrc/calibrate.cu`` (one warp a row up to 256
+  lanes, one 128-thread block a row beyond) and bumps ``LAUNCHES``; a CPU
+  tensor runs ``calibrate_fleet_torch``.
   There is no fallback between the two.
 * ``calibrate_fleet_torch`` is the plain PyTorch version: vectorised f32
   Newton in the same operation order as the reference's ``_fit_rows``.
@@ -42,8 +43,9 @@ PRIOR = 0.5           # MAP pull of (a, b) toward the identity (1, 0): a
 A_MIN, A_MAX = 0.05, 6.0
 B_MAX = 8.0
 
-#: widest row the kernel takes: x, target and mask of every lane stay in
-#: shared memory (12 bytes a lane, inside the 48 KB a block gets by default)
+#: widest row the kernel takes: past 256 lanes x, target and mask of every
+#: lane stay in shared memory (12 bytes a lane, inside the 48 KB a block
+#: gets by default)
 MAX_LANES = 2048
 
 #: kernel launches made by ``calibrate_fleet`` (a CPU call never counts)

@@ -42,8 +42,9 @@
 //    writes the thresholds as one float2.  The conf and mask loads of
 //    kTicks ticks are all made before any is used (they do not depend on
 //    the carry), so enough bytes are in flight to cover memory latency.
-//  - N > 32: a warp owns a row and walks it in 32-lane chunks
-//    (triage_row.cuh's row triage, shared with triage.cu).
+//  - N > 32: a warp owns a row and walks it in 32-lane chunks, several
+//    chunks' loads in flight (triage_row.cuh's row triage, shared with
+//    triage.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -130,9 +131,7 @@ superstep_packed_kernel(const float* __restrict__ conf,
         if (on[u]) update(alpha, beta, pull, g.g2);
         const size_t sr = static_cast<size_t>(s) * rows + r;
         if (live_row && col == 0) ths2[sr] = make_float2(alpha, beta);
-        // same comparison order as jnp.where(conf > a, 0, where(conf < b,
-        // 1, 2)); NaN escalates
-        const int route = (x[u] > alpha) ? 0 : ((x[u] < beta) ? 1 : 2);
+        const int route = route_of(x[u], alpha, beta);  // NaN escalates
         const bool esc = live && route == 2;
         const unsigned ballot = __ballot_sync(0xffffffffu, esc);
         const int pos = __popc(ballot & segment & lanemask_lt);

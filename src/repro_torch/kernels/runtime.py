@@ -64,6 +64,12 @@ SIGNATURES = {
     # (batch, head, seq) strides of q, k, v and o; stream
     "flash_attention": (_P, _P, _P, _P, *(_I,) * 8, *(_L,) * 12, _P),
 }
+#: further C entry points of a kernel library, by library: name -> the
+#: signature (each returns a cudaError code as int)
+ENTRY_POINTS = {
+    # the empty kernel beside the triage kernel (the launch floor): stream
+    "triage": {"triage_empty_launch": (_P,)},
+}
 #: every kernel of the port: those a run of the query pipeline (either
 #: frontend) can launch, and the serving path's attention
 KERNELS = tuple(SIGNATURES)
@@ -147,7 +153,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Dict[str, object]]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (building all kernels on first
-    use), with its two C entry points' signatures declared."""
+    use), with its C entry points' signatures declared."""
     lib = _LIBS.get(name)
     if lib is None:
         if not lib_path(name).exists():
@@ -159,6 +165,10 @@ def library(name: str) -> ctypes.CDLL:
         err = getattr(lib, f"{name}_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
+        for entry, signature in ENTRY_POINTS.get(name, {}).items():
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = list(signature)
         _LIBS[name] = lib
     return lib
 

@@ -5,10 +5,12 @@ buffer slots (stable per-row prefix-sum compaction) and per-row escalated
 counts — the per-tick hot path of the SurveilEdge allocator.
 
 * ``triage_fleet`` is the wrapper: a CUDA tensor launches the hand-written
-  kernel ``csrc/triage.cu`` (one warp per row, ballot/popc prefix sums)
-  and bumps ``LAUNCHES``; a CPU tensor runs ``triage_fleet_torch``.  There
-  is no fallback between the two: a CUDA tensor the kernel cannot take
-  raises.
+  kernel ``csrc/triage.cu`` (rows resident in warps, ballot/popc prefix
+  sums) and bumps ``LAUNCHES``; a CPU tensor runs ``triage_fleet_torch``.
+  There is no fallback between the two: a CUDA tensor the kernel cannot
+  take raises.
+* ``empty_launch`` launches ``csrc/triage.cu``'s empty kernel: the card's
+  launch floor, which the kernels' times are read against.
 * ``triage_fleet_torch`` is the plain PyTorch version — the same function
   in ``torch.where``/``torch.cumsum``, what the CPU path and the tests run
   and what the kernel is held against on the card.
@@ -83,3 +85,13 @@ def triage_fleet(conf: torch.Tensor, thresholds: torch.Tensor, *,
     runtime.check_launch("triage", rc)
     LAUNCHES += 1
     return routes, slots, counts
+
+
+def empty_launch(device: torch.device) -> None:
+    """One launch of the empty kernel beside the triage kernel (one warp,
+    no work) on ``device``'s current stream.  Not counted in
+    ``LAUNCHES``: it computes nothing on any path."""
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch: no kernel for device {device}")
+    rc = runtime.library("triage").triage_empty_launch(runtime.stream(device))
+    runtime.check_launch("triage", rc)

@@ -24,10 +24,16 @@ from repro_torch.kernels import superstep as SS
 from repro_torch.kernels import triage as T
 from repro_torch.models import meta as M
 from repro_torch.serving.engine import CascadeServer, Request
-from torch_kernel_cases import (ASSOC_CASES, SUPERSTEP_WIDTH_CASES,
-                                superstep_slab)
+from torch_kernel_cases import (ASSOC_CASES, CALIBRATE_WIDTHS,
+                                SUPERSTEP_WIDTH_CASES, TRIAGE_ROWS,
+                                TRIAGE_WIDTHS, label_case, superstep_slab,
+                                triage_case)
 
 pytestmark = pytest.mark.cuda
+
+#: calibrate params, kernel against plain version: ``chip_smoke.CAL_ATOL``
+#: (both f32 Newton fits of one function, the sums in another order)
+CAL_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -92,6 +98,7 @@ def test_each_launch_counts_once(cuda):
     before = T.LAUNCHES
     T.triage_fleet(conf, thr, capacity=4)
     T.triage_fleet_torch(conf, thr, capacity=4)
+    T.empty_launch(cuda)          # the launch floor computes nothing
     assert T.LAUNCHES == before + 1
     s, t = (x.to(cuda) for x in _labels(0, [64, 0], 64))
     before = C.LAUNCHES
@@ -137,6 +144,56 @@ def test_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
                            v)
+
+
+@pytest.mark.parametrize("rows", TRIAGE_ROWS)
+@pytest.mark.parametrize("n", TRIAGE_WIDTHS)
+def test_triage_kernel_matches_plain_at_every_width(cuda, n, rows):
+    """One to four of a row's lanes a lane (N <= 128) and the chunk walk,
+    on and off the buckets, one row to 2^17: routes, slots and counts
+    exactly, with NaN lanes, an all-pad row, capacity 0 and overflow."""
+    conf, thr = (torch.from_numpy(a).to(cuda)
+                 for a in triage_case(rows * 1000 + n, rows, n))
+    for capacity in (0, max(1, n // 4), n):
+        got = T.triage_fleet(conf, thr, capacity=capacity)
+        want = T.triage_fleet_torch(conf, thr, capacity=capacity)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (n, rows, capacity)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_triage_kernel_takes_pointers_its_vectors_cannot(cuda, offset):
+    """conf and thresholds ``offset`` floats into a buffer: the float2 /
+    float4 loads and the float2 thresholds give way to scalar ones."""
+    for n in (16, 64, 128):
+        conf, thr = triage_case(offset * n, 9, n)
+        views = []
+        for a in (conf, thr):
+            buf = torch.zeros(offset + a.size, device=cuda)
+            buf[offset:] = torch.from_numpy(a).flatten().to(cuda)
+            views.append(buf[offset:].view(a.shape))
+        for capacity in (0, 5):
+            got = T.triage_fleet(*views, capacity=capacity)
+            want = T.triage_fleet_torch(*views, capacity=capacity)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (n, offset, capacity)
+
+
+@pytest.mark.parametrize("n", CALIBRATE_WIDTHS)
+def test_calibrate_kernel_matches_plain_on_both_paths(cuda, n):
+    """A warp a row up to 256 lanes, a block a row beyond: counts exactly,
+    params within CAL_ATOL, degenerate rows exactly the identity."""
+    for rows in (4, 64):
+        scores, truths = (torch.from_numpy(a).to(cuda)
+                          for a in label_case(rows + n, rows, n))
+        kp, kc = C.calibrate_fleet(scores, truths, iters=8, min_count=8)
+        pp, pc = C.calibrate_fleet_torch(scores, truths, iters=8,
+                                         min_count=8)
+        assert torch.equal(kc, pc)
+        assert float((kp - pp).abs().max()) <= CAL_ATOL
+        ident = torch.tensor([1.0, 0.0], device=cuda)
+        for r in (1, 2, rows - 1):
+            assert torch.equal(kp[r], ident), (n, rows, r)
 
 
 @pytest.mark.parametrize("name", sorted(ASSOC_CASES))

@@ -20,6 +20,8 @@ from repro_torch.kernels import buckets
 from repro_torch.kernels import calibrate as C
 from repro_torch.kernels import ops, runtime
 from repro_torch.kernels import triage as T
+from torch_kernel_cases import (CALIBRATE_WIDTHS, TRIAGE_ROWS, TRIAGE_WIDTHS,
+                                label_case, triage_case)
 
 
 def _np(x):
@@ -117,6 +119,19 @@ def test_triage_one_row_matches_pallas(N, alpha, beta):
     assert tuple(got[0].shape) == (N,) and got[2].ndim == 0
 
 
+@pytest.mark.parametrize("rows", [r for r in TRIAGE_ROWS if r <= 64])
+@pytest.mark.parametrize("n", TRIAGE_WIDTHS)
+def test_triage_fleet_torch_matches_ref_at_every_kernel_width(n, rows):
+    """The plain version the kernel is held to on the card, against the
+    reference's oracle at every width of the kernel's three paths, with
+    NaN lanes, an all-pad row, capacity 0 and overflow."""
+    conf, thr = triage_case(rows * 1000 + n, rows, n)
+    for capacity in (0, max(1, n // 4), n):
+        got = T.triage_fleet_torch(torch.from_numpy(conf),
+                                   torch.from_numpy(thr), capacity=capacity)
+        _assert_equal(got, ref.triage_fleet_ref(conf, thr, capacity))
+
+
 def test_triage_nan_escalates_like_the_reference():
     conf = np.asarray([[np.nan, 0.95, 0.02, 0.5]], np.float32)
     thr = np.asarray([[0.9, 0.1]], np.float32)
@@ -171,6 +186,20 @@ def test_ops_calibrate_fleet_matches_pallas_f32(seed, lengths):
     np.testing.assert_allclose(_np(got_p), np.asarray(want_p), rtol=0,
                                atol=1e-4)
     np.testing.assert_array_equal(_np(got_c), np.asarray(want_c))
+
+
+@pytest.mark.parametrize("n", CALIBRATE_WIDTHS)
+def test_calibrate_fleet_torch_matches_pallas_at_every_kernel_width(n):
+    """The plain version the kernel is held to on the card, against the
+    reference's f32 Pallas fit at the widths of both of the kernel's
+    paths, degenerate rows included."""
+    scores, truths = label_case(n, 5, n)
+    got_p, got_c = _calibrate_torch(scores, truths)
+    want_p, want_c = jops.calibrate_fleet(scores, truths)
+    np.testing.assert_allclose(got_p, np.asarray(want_p), rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got_c, np.asarray(want_c))
+    for r in (1, 2, 4):
+        np.testing.assert_array_equal(got_p[r], [1.0, 0.0])
 
 
 def test_ops_calibrate_fleet_3d_fold_matches_pallas_f32():
@@ -228,6 +257,15 @@ def test_calibrate_recovers_known_logistic():
 
 
 # --- wrappers, counters, device rule --------------------------------------------
+
+
+def test_empty_launch_takes_only_the_card():
+    """The launch floor's empty kernel has no CPU version: a CPU device is
+    refused, and it is never counted as a triage launch."""
+    before = T.LAUNCHES
+    with pytest.raises(ValueError, match="no kernel"):
+        T.empty_launch(torch.device("cpu"))
+    assert T.LAUNCHES == before
 
 
 def test_cpu_calls_never_count_as_kernel_launches():

@@ -82,7 +82,8 @@ def _port_cfg(ref_cfg):
     full = get_config(base)
     cfg = full.edge_variant() if ref_cfg.name.endswith("-edge") \
         else full.reduced()
-    return dataclasses.replace(cfg, attn_impl=ref_cfg.attn_impl)
+    return dataclasses.replace(cfg, attn_impl=ref_cfg.attn_impl,
+                               num_layers=ref_cfg.num_layers)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -300,6 +301,31 @@ def test_flash_prefill_matches_reference_flash(model):
                        cache_len=80)
     tl, _ = T.prefill(_flash(cfg), tp, _t(tokens), cache_len=80)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=2e-4, rtol=0)
+
+
+def test_chunked_prefill_matches_reference_at_qwen3_8b_depth():
+    """qwen3-8b at its full depth (36 layers) and reduced width, bridged
+    weights: the port's chunked prefill logits against the reference's.
+    Their gap must stay an order of magnitude under the card's
+    ``LOGIT_ATOL`` (1e-4) and within 4x the reference's own f32 spread
+    between two of its paths to the same logits (a prefill of S tokens,
+    and a prefill of S - 1 then one decode step).  ROADMAP.md records the
+    numbers."""
+    ref_cfg = dataclasses.replace(ref_get_config("qwen3-8b").reduced(),
+                                  num_layers=36)
+    jp, tp = _bridged(ref_cfg, jax.random.PRNGKey(11), 4)
+    cfg = _port_cfg(ref_cfg)
+    S = 128
+    tokens = _tokens(9, (1, S), cfg.vocab_size)
+    jl, _ = JT.prefill(ref_cfg, jp, jnp.asarray(tokens), cache_len=S)
+    _, jc = JT.prefill(ref_cfg, jp, jnp.asarray(tokens[:, :-1]), cache_len=S)
+    jd, _ = JT.decode_step(ref_cfg, jp, jc, jnp.asarray(tokens[:, -1]))
+    tl, _ = T.prefill(cfg, tp, _t(tokens), cache_len=S)
+    gap = float(np.abs(tl.numpy() - np.asarray(jl)).max())
+    own = float(np.abs(np.asarray(jd) - np.asarray(jl)).max())
+    assert cfg.num_layers == 36 and np.isfinite(tl.numpy()).all()
+    assert gap <= 1e-5, gap
+    assert gap <= 4 * max(own, 2.0 ** -23), (gap, own)
 
 
 def test_cascade_helpers_match_reference():

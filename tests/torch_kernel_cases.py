@@ -4,7 +4,8 @@ The association cases are the greedy orders that the association
 kernel's shortcuts (take the precomputed best while it is unclaimed,
 rescan otherwise) must not change; the superstep cases cover every row
 width the superstep kernel packs into a warp and the chunk walk beyond
-32 lanes.  Plain numpy: ``tests/test_torch_cuda.py`` imports no JAX.
+32 lanes; the triage and calibrate widths cover every path of those two
+kernels.  Plain numpy: ``tests/test_torch_cuda.py`` imports no JAX.
 """
 import numpy as np
 
@@ -78,3 +79,49 @@ def superstep_slab(seed, S, R, N, mask_kind="random"):
     drain[: R // 4] = interval                       # exactly at the gate
     gains = np.asarray([0.05, 0.2, 0.3, interval], np.float32)
     return conf, th0, mask, drain, gains
+
+
+#: triage widths: one to four of a row's lanes a lane (N <= 128: each
+#: V = ceil(N/32), on the vector loads at 64 and 128 and the scalar ones
+#: elsewhere) and the chunk walk (200, 1024), with widths off the buckets
+#: (13, 21, 33, 200) as ``ops.triage`` passes them; and row counts from
+#: one row to 2^17
+TRIAGE_WIDTHS = [1, 2, 3, 8, 13, 16, 21, 32, 33, 64, 80, 100, 128, 200,
+                 1024]
+TRIAGE_ROWS = [1, 7, 64, 1 << 17]
+#: calibrate widths on both of its kernel's paths: a warp a row up to 256
+#: lanes (the feedback window; 100 and 200 off the powers of two), a
+#: block a row up to ``MAX_LANES``
+CALIBRATE_WIDTHS = [8, 16, 64, 100, 200, 256, 257, 2048]
+
+
+def triage_case(seed, rows, n):
+    """Seeded (conf (rows, n), thresholds (rows, 2)): NaN in row 0's
+    first three lanes (where n allows) and, past one row, an all-pad last
+    row."""
+    rng = np.random.default_rng(seed)
+    conf = rng.random((rows, n), dtype=np.float32)
+    if n >= 3:
+        conf[0, :3] = np.nan
+    if rows > 1:
+        conf[-1] = -1.0
+    thr = np.stack([rng.uniform(0.5, 1.0, rows), rng.uniform(0.0, 0.45, rows)],
+                   axis=1).astype(np.float32)
+    return conf, thr
+
+
+def label_case(seed, rows, n):
+    """Seeded (scores, truths) of ``rows`` >= 4 rows from a known logistic,
+    ragged, with degenerate rows: row 1 has four labels (below a
+    ``min_count`` of 8), row 2 one class only, the last row no label."""
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(0.02, 0.98, (rows, n))
+    p = 1.0 / (1.0 + np.exp(-(2.0 * np.log(s / (1 - s)) + 0.5)))
+    truths = (rng.uniform(0, 1, (rows, n)) < p).astype(np.float32)
+    lengths = rng.integers(max(1, n // 4), n + 1, rows)
+    lengths[1], lengths[-1] = min(4, n), 0
+    truths[2] = 1.0
+    lane = np.arange(n)[None, :]
+    scores = np.where(lane < lengths[:, None], s, -1.0).astype(np.float32)
+    truths = np.where(lane < lengths[:, None], truths, 0.0).astype(np.float32)
+    return scores, truths
