@@ -17,9 +17,11 @@ Phases, each fatal on failure:
    exactly, the Platt fit (R in {4, 64} x ``CALIBRATE_WIDTHS``, both of
    its paths, with degenerate rows) within ``CAL_ATOL`` with exact
    counts; the pixel cascade, framediff, dilate
-   and erode exactly, at ``PIXEL_SHAPES``, on sparse motion, on a static
-   scene and at 1080p (``HD``), with the fused cascade also held against
-   the staged framediff -> dilate -> erode launches; the scan superstep
+   and erode exactly, at ``PIXEL_SHAPES`` and ``PIXEL_TILE_SHAPES``, on
+   sparse motion, on a static scene and at 1080p (``HD``), with the fused
+   cascade also held against the staged framediff -> dilate -> erode
+   launches, and on the uint8 camera views ``detect`` passes, over
+   consecutive calls and after a call with more cameras; the scan superstep
    bit for bit (routes, slots and f32 thresholds) at ``SUPERSTEP_SHAPES``
    — the metropolis cap slab among them — with masks all off and all on,
    drains on both sides of the interval and capacity overflow; the track
@@ -51,8 +53,10 @@ Phases, each fatal on failure:
    ``CONF_ATOL``) and the same summary, or differ only within
    ``GATE_BANDS``; ``PixelFrontend(fused=False)`` on the card must give
    the identical stream from one framediff and two morphology launches a
-   tick.  Prints the render / framediff / CCL / classify split of the
-   card's run, of a second card run and of the host's;
+   tick.  One ``ops.pixel_cascade`` call on the tick's uint8 views must
+   be one device operation under ``torch.profiler``.  Prints the render /
+   framediff / CCL / classify split of the card's run, of a second card
+   run and of the host's;
 7. the superstep path: ``run_query(metropolis(duration_s=METRO_S))`` at the
    preset's full fleet (10,240 cameras, 1,024 edges, 24 queries, 10 Hz):
    superstep launches must equal ``supersteps`` and each must fuse >= 10
@@ -80,7 +84,9 @@ Phases, each fatal on failure:
 10. time the card's launch floor (an empty kernel), then each kernel and
    its plain version on the inputs the main paths gave it (triage and
    calibrate at every recorded shape with its launches, calibrate also at
-   ``CALIBRATE_WIDE``; the pixel kernels also at 1080p; flash attention
+   ``CALIBRATE_WIDE``; the pixel kernels also at 1080p, the cascade on
+   the tick's uint8 views, on int32 frames and beside the five operations
+   that widened the views first; flash attention
    and SDPA at
    every prefill length of the serving run, summed over its launches,
    and at qwen3-8b's prefill, in f32 and in bf16; the superstep at every
@@ -146,16 +152,26 @@ CONF_ATOL = 1e-5
 #: camera frame, a sub-band height, non-lane widths
 PIXEL_SHAPES = [(2, 96, 128), (1, 33, 40), (3, 16, 300), (2, 100, 96),
                 (1, 64, 129)]
+#: (B, H, W) on the edges of the kernels' tiles: the cascade's 28 x 16
+#: (frames under 32,768 pixels) and 60 x 32 tiles and the stencil's
+#: 128 x 16, at exact multiples and one past them, W * 3 odd
+PIXEL_TILE_SHAPES = [(2, 16, 28), (1, 17, 29), (3, 33, 57), (2, 16, 128),
+                     (1, 17, 257), (1, 128, 256), (2, 161, 241),
+                     (1, 96, 600)]
 #: eight 1080p cameras: ~0.6 GB of int32 frames a tick
 HD = (8, 1080, 1920)
-#: bytes a pixel each pixel kernel must move: three (.., 3) int32 pixels
-#: read and one int32 mask value written; morphology reads and writes one
-PIXEL_BYTES = {"pixel_cascade": 3 * 12 + 4, "framediff": 3 * 12 + 4,
-               "morph3x3": 4 + 4}
+#: bytes a pixel each pixel kernel must move: three (.., 3) pixels read
+#: (12 bytes each in int32, 3 in uint8) and one int32 mask value
+#: written; morphology reads and writes one.  The cascade's bound follows
+#: its frames' element type, so a bound is the same work whatever
+#: computes it
+PIXEL_BYTES = {"pixel_cascade": 3 * 12 + 4, "pixel_cascade_uint8": 3 * 3 + 4,
+               "framediff": 3 * 12 + 4, "morph3x3": 4 + 4}
 #: integer operations a pixel: framediff's 3 x (2 sub, 2 abs, and) + gray
 #: (3 mul, 2 add, div) + compare; a 3x3 stencil's 9 compares; the cascade
 #: does both stencils
-PIXEL_OPS = {"pixel_cascade": 22 + 18, "framediff": 22, "morph3x3": 9}
+PIXEL_OPS = {"pixel_cascade": 22 + 18, "pixel_cascade_uint8": 22 + 18,
+             "framediff": 22, "morph3x3": 9}
 #: a pending kernel that holds the stream while the host enqueues a timed
 #: loop, so the events time the device, not the Python launch path
 HOLD_CYCLES = 500_000_000
@@ -449,14 +465,93 @@ def check_pixel(torch, FD, MO, PC, ops, dev) -> None:
                         "static scene")
     if bool(mask.any()) or bool(counts.any()):
         fail("pixel static scene: foreground on a motionless scene")
+    for shape in PIXEL_TILE_SHAPES:
+        case(pixel_frames(torch, g, *shape), 40, f"tile edge {shape}")
     u8 = [f.to(torch.uint8) for f in pixel_frames(torch, g, 3, 96, 128)]
     same("uint8 frames",
          [t.cpu() for t in ops.pixel_cascade(*u8, device=dev)],
          ops.pixel_cascade(*u8, device="cpu"))
+    # the views detect passes: uint8 camera slices of one (B, 3, H, W, 3)
+    # batch, a camera stride of three frames; the kernel against the plain
+    # version on the same views and on the int32 frames they widen to
+    kw = dict(threshold=40, maxval=255)
+    for shape in PIXEL_SHAPES + PIXEL_TILE_SHAPES:
+        views = camera_views(torch, g, *shape, dev)
+        want = PC.pixel_cascade_torch(*(v.to(torch.int32) for v in views),
+                                      **kw)
+        same(f"uint8 views {shape}", PC.pixel_cascade(*views, **kw), want)
+        same(f"uint8 views {shape} (plain)",
+             PC.pixel_cascade_torch(*views, **kw), want)
+        same(f"ops on uint8 views {shape}",
+             ops.pixel_cascade(*views, device=dev), want)
+    # the count words left zeroed: consecutive calls, then more cameras
+    # than any call before (a grown workspace), then fewer again
+    for i, B in enumerate((2, 2, 2, 9, 3)):
+        views = camera_views(torch, g, B, 96, 128, dev)
+        same(f"call {i} ({B} cameras)", PC.pixel_cascade(*views, **kw),
+             PC.pixel_cascade_torch(*views, **kw))
+    # more frames than CUDA's grid z limit: blocks loop over cameras
+    x = (torch.randint(0, 2, (65537, 5, 7), generator=g,
+                       dtype=torch.int32) * 255).to(dev)
+    for op, fill in (("max", 0), ("min", 255)):
+        same(f"morph3x3 {op} on {tuple(x.shape)}",
+             (MO.morph3x3(x, op=op, fill=fill),),
+             (MO.morph3x3_torch(x, op=op, fill=fill),))
     _, counts = case(pixel_frames(torch, g, *HD), 40, f"1080p {HD}")
+    views = camera_views(torch, g, *HD, dev)
+    same(f"uint8 views {HD}", PC.pixel_cascade(*views, **kw),
+         PC.pixel_cascade_torch(*views, **kw))
     print(f"pixel kernels exact at {len(PIXEL_SHAPES)} shapes x 3 "
-          f"thresholds, sparse, static, uint8 and {HD} (foreground "
+          f"thresholds, sparse, static, {len(PIXEL_TILE_SHAPES)} tile-edge "
+          f"shapes, uint8 frames and camera views, 5 consecutive calls, "
+          f"morph3x3 on 65,537 frames and {HD} (foreground "
           f"{counts.tolist()})", flush=True)
+
+
+def camera_views(torch, g, B: int, H: int, W: int, dev):
+    """The three uint8 frames ``detect`` passes: camera slices ``batch[:,
+    k]`` of one random (B, 3, H, W, 3) uint8 batch on ``dev``."""
+    batch = torch.randint(0, 256, (B, 3, H, W, 3), generator=g,
+                          dtype=torch.uint8).to(dev)
+    return [batch[:, k] for k in range(3)]
+
+
+def tick_views(torch, rec):
+    """The cascade's largest recorded input (``rec``, a ``Recorder``) laid
+    out as the main path passed it: the three frames stacked into one
+    (B, 3, H, W, 3) batch and sliced again, whose strides must be the
+    recorded ones.  Returns (views, keywords)."""
+    key = max(rec.inputs, key=lambda s: s[0] * s[1] * s[2])
+    *frames, kw = rec.inputs[key]
+    views = [v for v in torch.stack(frames, dim=1).unbind(1)]
+    got = [(tuple(v.stride()), v.dtype) for v in views]
+    if got != rec.layouts[key]:
+        fail(f"pixel_city's cascade input {key} was laid out as "
+             f"{rec.layouts[key]}, rebuilt as {got}")
+    return views, kw
+
+
+def device_ops(torch, fn) -> list:
+    """The names of the device operations (kernels, copies, memsets) of
+    one call of ``fn``, warmed up first, under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def parent_tick(torch, PC, views, kw):
+    """The five device operations a tick made before the cascade read
+    uint8 views: each view widened to a contiguous int32 copy, a zeroed
+    ``counts``, and the kernel on the copies."""
+    wide = [v.to(torch.int32) for v in views]
+    torch.zeros((wide[0].shape[0],), dtype=torch.int32, device=wide[0].device)
+    return PC.pixel_cascade(*wide, **kw)
 
 
 class StageClock:
@@ -512,9 +607,12 @@ def stream_diff(got, want) -> float:
                default=0.0)
 
 
-def pixel_bound_ms(name: str, shape) -> tuple:
+def pixel_bound_ms(name: str, shape, dtype=None) -> tuple:
     """Least time for ``name`` over (B, H, W) pixels: bytes over HBM rate
-    or integer operations over the scalar rate, whichever is larger."""
+    or integer operations over the scalar rate, whichever is larger; the
+    cascade's bytes follow its frames' ``dtype``."""
+    if name == "pixel_cascade" and str(dtype) == "torch.uint8":
+        name = "pixel_cascade_uint8"
     px = shape[0] * shape[1] * shape[2]
     t_b = px * PIXEL_BYTES[name] / HBM_BYTES_S
     t_o = px * PIXEL_OPS[name] / F32_FLOP_S
@@ -524,7 +622,8 @@ def pixel_bound_ms(name: str, shape) -> tuple:
 class Recorder:
     """Wraps a kernel wrapper to keep the first input of every distinct
     first-argument shape the main path gives it (copies of the tensors,
-    then the keywords, for timing afterwards) and count the calls of each
+    then the keywords, for timing afterwards; the strides and dtypes the
+    tensors came with in ``layouts``) and count the calls of each
     (``counts``); with ``keep_all`` also every call's input, in order, in
     ``calls``."""
 
@@ -532,6 +631,7 @@ class Recorder:
         self.module, self.attr = module, attr
         self.inner = getattr(module, attr)
         self.inputs = {}
+        self.layouts = {}
         self.counts = {}
         self.keep_all = keep_all
         self.calls = []
@@ -540,6 +640,8 @@ class Recorder:
         def wrapped(*args, **kw):
             key = tuple(args[0].shape)
             self.counts[key] = self.counts.get(key, 0) + 1
+            self.layouts.setdefault(key, [(tuple(a.stride()), a.dtype)
+                                          for a in args])
             if key not in self.inputs or self.keep_all:
                 copy = (*(a.clone() for a in args), kw)
                 self.inputs.setdefault(key, copy)
@@ -909,14 +1011,22 @@ def time_shapes(torch, inputs: dict, counts: dict, kernel, bound,
 
 
 def time_pixel_kernels(torch, F, FD, MO, PC, dev, recorders: dict,
-                       counts: dict) -> list:
-    """The ``{"kernels": [...]}`` rows of the three pixel kernels, timed on
-    the largest input ``pixel_city`` gave each (``recorders``: the cascade
-    in the fused run, framediff and the dilate binding of morph3x3 in the
-    staged run) and at ``HD``.  Every recorded input is first re-checked
-    against the plain version.  ``counts`` holds each path's launches."""
+                       counts: dict, tick: tuple, tick_ops: int,
+                       parent_ops: int, floor_ms: float) -> list:
+    """The ``{"kernels": [...]}`` rows of the three pixel kernels.  The
+    cascade is timed on ``tick`` (the uint8 camera views ``pixel_city``
+    passed it, and its keywords; ``tick_ops`` device operations a call),
+    on the same frames widened to int32, at ``HD`` in int32 and on uint8
+    views, and beside the sequence that widened the views first
+    (``parent_tick``, ``parent_ops`` device operations); framediff and the
+    dilate binding of morph3x3 on the largest input the staged run gave
+    each (``recorders``) and at ``HD``.
+    Every recorded input is first re-checked against the plain version.
+    ``counts`` holds each path's launches."""
     g = torch.Generator(device="cpu").manual_seed(1)
     hd = [f.to(dev) for f in pixel_frames(torch, g, *HD)]
+    hd_views = list(torch.stack([f.to(torch.uint8) for f in hd],
+                                dim=1).unbind(1))
     fd_kw = dict(threshold=40, maxval=255)
     dilate_kw = dict(op="max", fill=0)
     specs = {   # name: (source, TPU kernel, kernel, plain, 1080p args)
@@ -939,7 +1049,7 @@ def time_pixel_kernels(torch, F, FD, MO, PC, dev, recorders: dict,
         for a, b in zip(got, want):
             if not torch.equal(a, b):
                 fail(f"{name} differs from its plain version at "
-                     f"{tuple(ts[0].shape)}")
+                     f"{tuple(ts[0].shape)} {ts[0].dtype}")
         return max_err(got, want)
 
     def measure(name, kernel, plain, args) -> dict:
@@ -955,31 +1065,61 @@ def time_pixel_kernels(torch, F, FD, MO, PC, dev, recorders: dict,
                 fail("max_pool2d is not the dilate on this mask")
             library_ms = device_ms(torch, lambda: F.max_pool2d(xf, 3, 1, 1),
                                    100)
-        bound, by = pixel_bound_ms(name, ts[0].shape)
-        return {"shape": list(ts[0].shape[:3]),
-                "max_abs_err": check(name, kernel, plain, args),
-                "ms": device_ms(torch, lambda: kernel(*ts, **kw), 100),
+        bound, by = pixel_bound_ms(name, ts[0].shape, ts[0].dtype)
+        ms = device_ms(torch, lambda: kernel(*ts, **kw), 100)
+        return {"shape": list(ts[0].shape[:3]), "dtype": str(ts[0].dtype),
+                "strides": list(ts[0].stride()),
+                "max_abs_err": check(name, kernel, plain, args), "ms": ms,
                 "plain_ms": device_ms(torch, lambda: plain(*ts, **kw), 10),
-                "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+                "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms,
+                "over_floor_ms": ms - floor_ms, "library_ms": library_ms}
 
     out = []
     for name, (source, replaces, kernel, plain, hd_args) in specs.items():
         rec = recorders[name]
         for args in rec.inputs.values():
             check(name, kernel, plain, args)
-        largest = rec.inputs[max(rec.inputs,
-                                 key=lambda s: s[0] * s[1] * s[2])]
+        if name == "pixel_cascade":
+            views, kw = tick
+            main = (*views, kw)
+        else:
+            main = rec.inputs[max(rec.inputs,
+                                  key=lambda s: s[0] * s[1] * s[2])]
         by_path = {path: c["morphology" if name == "morph3x3" else name]
                    for path, c in counts.items()}
-        out.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            **measure(name, kernel, plain, largest),
+            **measure(name, kernel, plain, main),
             "library": "F.max_pool2d(x.float()[:, None], 3, 1, 1)"
             if name == "morph3x3" else None,
-            "at_1080p": measure(name, kernel, plain, hd_args)})
+            "at_1080p": measure(name, kernel, plain, hd_args)}
+        if name == "pixel_cascade":
+            row["device_ops"] = tick_ops
+            row["int32"] = measure(name, kernel, plain,
+                                   (*(v.to(torch.int32) for v in views),
+                                    kw))
+            # the operations of parent_tick, timed as one unit
+            row["widened_first"] = {**measure(
+                name, lambda *v, **k: parent_tick(torch, PC, v, k), plain,
+                (*views, kw)), "device_ops": parent_ops}
+            row["at_1080p_uint8"] = measure(name, kernel, plain,
+                                            (*hd_views, fd_kw))
+            print("pixel cascade (B, H, W) dtype: ms, bound ms, share; "
+                  + "; ".join(f"{k} {tuple(r['shape'])} {r['dtype']} "
+                              f"{r['ms']:.5f} {r['bound_ms']:.5f} "
+                              f"{r['share_of_bound']:.3f}"
+                              for k, r in (("tick", row),
+                                           ("int32", row["int32"]),
+                                           ("widened first",
+                                            row["widened_first"]),
+                                           ("1080p", row["at_1080p"]),
+                                           ("1080p uint8",
+                                            row["at_1080p_uint8"]))),
+                  flush=True)
+        out.append(row)
     return out
 
 
@@ -1450,6 +1590,24 @@ def main() -> None:
             staged_counts["pixel_cascade"]) != (ticks, 2 * ticks, 0):
         fail(f"staged launches {staged_counts} vs {ticks} ticks (want "
              f"framediff = ticks, morphology = 2 x ticks, cascade 0)")
+    # one tick's pixel stage on the card: the device operations of one
+    # ops.pixel_cascade call on the views the main path passed, against
+    # the five of the sequence that widened them first
+    views, tick_kw = tick_views(torch, pc_rec)
+    tick_ops = device_ops(torch, lambda: ops.pixel_cascade(
+        *views, **tick_kw, device=dev))
+    parent_ops = device_ops(torch, lambda: parent_tick(torch, PC, views,
+                                                       tick_kw))
+    print(f"pixel stage device operations a tick on "
+          f"{[tuple(v.stride()) for v in views]} uint8 views: "
+          f"{len(tick_ops)} {tick_ops}; widened first: {len(parent_ops)} "
+          f"{parent_ops}", flush=True)
+    if len(tick_ops) != 1:
+        fail(f"one ops.pixel_cascade call made {len(tick_ops)} device "
+             f"operations, not 1: {tick_ops}")
+    if len(parent_ops) != 5:
+        fail(f"the widened-first tick made {len(parent_ops)} device "
+             f"operations, not the parent's 5: {parent_ops}")
 
     phase(f"superstep path: metropolis, full fleet, {METRO_S} s")
     msc = metropolis(duration_s=METRO_S)
@@ -1681,7 +1839,8 @@ def main() -> None:
     pixel_rows = time_pixel_kernels(
         torch, F, FD, MO, PC, dev,
         {"pixel_cascade": pc_rec, "framediff": fd_rec, "morph3x3": mo_rec},
-        {"pixel_city": pixel_counts, "pixel_city_staged": staged_counts})
+        {"pixel_city": pixel_counts, "pixel_city_staged": staged_counts},
+        (views, tick_kw), len(tick_ops), len(parent_ops), floor_ms)
     # the scan superstep: every recorded metropolis slab re-checked bit for
     # bit (the superstep=1 run's first of each shape), every slab shape
     # timed with its launches, the largest (the cap slab where the run

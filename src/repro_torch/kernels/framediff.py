@@ -32,27 +32,37 @@ def framediff_torch(f0: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor, *,
     return torch.where(gray > threshold, maxval, 0).to(torch.int32)
 
 
-def check_frames(name: str, *frames: torch.Tensor) -> None:
-    """Raise unless the frames are int32 (B, H, W, 3) of one shape on one
-    device (shared with the fused cascade's wrapper)."""
+def check_frames(name: str, *frames: torch.Tensor,
+                 dtypes=(torch.int32,), camera_stride: bool = False) -> None:
+    """Raise unless the frames are (B, H, W, 3) of one shape, one dtype
+    out of ``dtypes`` and one device (shared with the fused cascade's
+    wrapper).  With ``camera_stride`` a frame's cameras may lie any
+    distance apart, but each camera's (H, W, 3) block must be contiguous."""
     f0 = frames[0]
     for f in frames:
-        if f.dtype != torch.int32:
-            raise TypeError(f"{name} takes int32 frames, got {f.dtype}")
+        if f.dtype not in dtypes or f.dtype != f0.dtype:
+            want = " or ".join(str(d).rsplit(".", 1)[-1] for d in dtypes)
+            raise TypeError(f"{name} takes {want} frames of one dtype, got "
+                            f"{[x.dtype for x in frames]}")
         if f.ndim != 4 or f.shape[-1] != 3 or f.shape != f0.shape:
             raise ValueError(f"{name} takes three (B, H, W, 3) frames of one "
                              f"shape, got {[tuple(x.shape) for x in frames]}")
         if f.device != f0.device:
             raise ValueError(f"{name}: frames on {f0.device} and {f.device}")
+        if camera_stride and f.shape[0] and not f[0].is_contiguous():
+            raise ValueError(f"{name}: each camera's (H, W, 3) block must be "
+                             f"contiguous, got strides {f.stride()}")
 
 
-def require_launchable(name: str, *tensors: torch.Tensor) -> None:
+def require_launchable(name: str, *tensors: torch.Tensor,
+                       contiguous: bool = True) -> None:
     """Raise unless the CUDA tensors can go to a kernel as they are:
-    contiguous and non-empty."""
+    non-empty and, unless the kernel takes strides (``contiguous=False``),
+    contiguous."""
     for t in tensors:
         if t.numel() == 0:
             raise ValueError(f"{name}: empty input {tuple(t.shape)}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
 
 

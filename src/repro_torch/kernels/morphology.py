@@ -7,8 +7,9 @@ min with fill ``maxval`` — the two bindings of the reference's one
 ``_morph_pallas`` launcher.
 
 * ``morph3x3`` is the wrapper: a CUDA tensor launches the hand-written
-  kernel ``csrc/morphology.cu`` (one thread an output pixel, nine
-  bounds-checked loads) and bumps ``LAUNCHES``; a CPU tensor runs
+  kernel ``csrc/morphology.cu`` (a block a 128 x 16 tile staged with its
+  halo and the fill in shared memory, a row pass then a column pass, 4
+  outputs a thread) and bumps ``LAUNCHES``; a CPU tensor runs
   ``morph3x3_torch``.  There is no fallback between the two.
 * ``morph3x3_torch`` is the plain PyTorch version: pad with ``fill``, then
   nine shifted slices.
@@ -16,8 +17,8 @@ min with fill ``maxval`` — the two bindings of the reference's one
 Both replace ``repro.kernels.morphology._morph_pallas`` and its bindings
 ``dilate3x3_pallas`` / ``erode3x3_pallas``: the second and third launches
 of the staged chain behind ``ops.pixel_cascade(fused=False)``.  The
-reference's host-side ``halo_bands`` gather is not needed: the kernel's
-bounds check supplies the fill.
+reference's host-side ``halo_bands`` gather is not needed: each block
+loads its own halo and applies the fill as it loads.
 """
 from __future__ import annotations
 
@@ -63,6 +64,9 @@ def morph3x3(x: torch.Tensor, *, op: str, fill: int) -> torch.Tensor:
         raise ValueError(f"morph3x3: no kernel for device {x.device}")
     require_launchable("morph3x3", x)
     B, H, W = x.shape
+    if H * W >= 1 << 31:
+        raise ValueError(f"morph3x3: frames of under 2^31 pixels, got "
+                         f"{tuple(x.shape)}")
     out = torch.empty_like(x)
     rc = runtime.library("morphology").morphology_launch(
         x.data_ptr(), out.data_ptr(), B, H, W, OPS[op], int(fill),

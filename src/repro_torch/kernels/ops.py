@@ -153,6 +153,18 @@ def _int32_on(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(dev).to(torch.int32).contiguous()
 
 
+def _frames_on(frames, dev: torch.device):
+    """The three frames on ``dev`` as the fused cascade takes them: uint8
+    or int32 frames of one dtype as they are, views with any camera stride
+    included (no device operation); other or mixed dtypes widen to int32,
+    and a camera block that is not contiguous is copied."""
+    ts = [torch.as_tensor(f).to(dev) for f in frames]
+    if len({t.dtype for t in ts}) > 1 or ts[0].dtype not in _pc.FRAME_DTYPES:
+        ts = [t.to(torch.int32) for t in ts]
+    return [t.contiguous() if t.ndim == 4 and t.shape[0] and
+            not t[0].is_contiguous() else t for t in ts]
+
+
 def framediff(f0, f1, f2, *, threshold: int = 40, maxval: int = 255,
               device="cuda") -> torch.Tensor:
     """Binary motion mask from 3 consecutive (B, H, W, 3) frames with
@@ -175,21 +187,23 @@ def erode3x3(x, maxval: int = 255, *, device="cuda") -> torch.Tensor:
 def pixel_cascade(f0, f1, f2, *, threshold: int = 40, maxval: int = 255,
                   fused: bool = True, device="cuda"):
     """Whole pixel frontend — framediff -> dilate -> erode -> count — in
-    ONE kernel launch per tick.
+    ONE device operation per tick.
 
     Frames are (B, H, W, 3) uint8/int with values in [0, 255]; returns
     ``(mask (B, H, W) int32, counts (B,) int32)`` where ``counts[b]`` is
     camera b's foreground pixel count, which ``detect`` uses to skip
-    connected-component labelling for motionless cameras.
+    connected-component labelling for motionless cameras.  uint8 and
+    int32 tensors already on ``device`` go to the kernel as they are,
+    strided camera views included.
 
     ``fused=False`` runs the staged chain instead — three launches
-    (framediff, dilate, erode) and a mask reduction — kept as the
-    differential reference the fused kernel is held against."""
+    (framediff, dilate, erode) on int32 frames and a mask reduction — kept
+    as the differential reference the fused kernel is held against."""
     dev = resolve_device(device)
-    f0, f1, f2 = (_int32_on(f, dev) for f in (f0, f1, f2))
     if fused:
-        return _pc.pixel_cascade(f0, f1, f2, threshold=threshold,
-                                 maxval=maxval)
+        return _pc.pixel_cascade(*_frames_on((f0, f1, f2), dev),
+                                 threshold=threshold, maxval=maxval)
+    f0, f1, f2 = (_int32_on(f, dev) for f in (f0, f1, f2))
     mask = _mo.erode3x3(_mo.dilate3x3(_fd.framediff(
         f0, f1, f2, threshold=threshold, maxval=maxval)), maxval)
     return mask, (mask > 0).sum(dim=(1, 2), dtype=torch.int32)

@@ -53,8 +53,9 @@ SIGNATURES = {
     "framediff": (_P, _P, _P, _P, _I, _I, _I, _P),
     # x, out; batch, h, w, op (0 max, 1 min), fill; stream
     "morphology": (_P, _P, _I, _I, _I, _I, _I, _P),
-    # f0, f1, f2, mask, counts; batch, h, w, threshold, maxval; stream
-    "pixel_cascade": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # f0, f1, f2, mask, counts, count words; batch, h, w, threshold,
+    # maxval, frame element bytes; the frames' camera strides; stream
+    "pixel_cascade": (_P, _P, _P, _P, _P, _P, *(_I,) * 6, _L, _L, _L, _P),
     # conf, th0, mask, drain, gains, routes, slots, ths; steps, rows, n,
     # capacity; stream
     "superstep": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

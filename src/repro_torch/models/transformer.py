@@ -113,10 +113,12 @@ def classify(cfg: ModelConfig, params: Params,
 
 
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-               dtype: torch.dtype = torch.float32, device="cpu") -> Cache:
-    """An empty decode cache: ``pos`` (B,) at 0, ``kpos`` (B, W) at -1 (no
-    slot written), and per layer K/V (L, B, W, KV, hd) zeros of ``dtype``,
-    in the attention's (B, S, KV, hd) layout."""
+               dtype: torch.dtype = torch.float32, device="cuda") -> Cache:
+    """An empty decode cache on ``device`` (the card unless the caller
+    asks for the CPU): ``pos`` (B,) at 0, ``kpos`` (B, W) at -1 (no slot
+    written), and per layer K/V (L, B, W, KV, hd) zeros of ``dtype``, in
+    the attention's (B, S, KV, hd) layout."""
+    device = resolve_device(device)
     shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
              cfg.head_dim)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),

@@ -19,15 +19,19 @@ from repro_torch.configs import get_config
 from repro_torch.core.thresholds import ThresholdState
 from repro_torch.kernels import calibrate as C
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import morphology as MO
+from repro_torch.kernels import ops
+from repro_torch.kernels import pixel_cascade as PC
 from repro_torch.kernels import similarity as SIM
 from repro_torch.kernels import superstep as SS
 from repro_torch.kernels import triage as T
 from repro_torch.models import meta as M
 from repro_torch.serving.engine import CascadeServer, Request
 from torch_kernel_cases import (ASSOC_CASES, CALIBRATE_WIDTHS,
+                                PIXEL_SHAPES, PIXEL_TILE_SHAPES,
                                 SUPERSTEP_WIDTH_CASES, TRIAGE_ROWS,
-                                TRIAGE_WIDTHS, label_case, superstep_slab,
-                                triage_case)
+                                TRIAGE_WIDTHS, label_case, pixel_batch,
+                                superstep_slab, triage_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +91,13 @@ def _problem(seed, m, k, d):
     return [torch.from_numpy(a) for a in (emb, trk, cq, tq, thr)]
 
 
+def _views(seed, B, H, W, dev, dtype=torch.uint8):
+    """Camera views ``batch[:, k]`` of one (B, 3, H, W, 3) batch on
+    ``dev``, as ``detect`` passes them (uint8 unless ``dtype`` says)."""
+    batch = torch.from_numpy(pixel_batch(seed, B, H, W)).to(dev, dtype)
+    return [batch[:, k] for k in range(3)]
+
+
 def _qkv(seed, B, H, KV, Sq, Sk, hd, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dtype)
@@ -120,6 +131,13 @@ def test_each_launch_counts_once(cuda):
     FA.flash_attention(q, k, v)
     FA.flash_attention_torch(q, k, v)
     assert FA.LAUNCHES == before + 1
+    views = _views(0, 2, 40, 50, cuda)
+    before = PC.LAUNCHES, MO.LAUNCHES
+    mask, _ = PC.pixel_cascade(*views, threshold=40, maxval=255)
+    PC.pixel_cascade_torch(*views, threshold=40, maxval=255)
+    MO.morph3x3(mask, op="max", fill=0)
+    MO.morph3x3_torch(mask, op="max", fill=0)
+    assert (PC.LAUNCHES, MO.LAUNCHES) == (before[0] + 1, before[1] + 1)
 
 
 def test_cuda_tensors_never_fall_back(cuda):
@@ -144,6 +162,15 @@ def test_cuda_tensors_never_fall_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         FA.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
                            v)
+    views = _views(0, 2, 8, 8, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        PC.pixel_cascade(*(v.transpose(1, 2) for v in views), threshold=40,
+                         maxval=255)
+    with pytest.raises(TypeError, match="uint8 or int32"):
+        PC.pixel_cascade(*(v.long() for v in views), threshold=40,
+                         maxval=255)
+    with pytest.raises(ValueError, match="empty"):
+        PC.pixel_cascade(*(v[:0] for v in views), threshold=40, maxval=255)
 
 
 @pytest.mark.parametrize("rows", TRIAGE_ROWS)
@@ -301,6 +328,90 @@ def test_serving_counts_flash_launches(cuda):
     got = serve(cuda)
     assert FA.LAUNCHES == cloud_cfg.num_layers * len(lengths)
     assert got == serve("cpu")
+
+
+def _same(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous",
+                                                        "views"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("shape", PIXEL_SHAPES + PIXEL_TILE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_pixel_cascade_kernel_matches_plain(cuda, shape, dtype, strided):
+    """Both tiles and both frame types, contiguous frames and the camera
+    views ``detect`` passes, at the fixed shapes and on the tiles' edges
+    (W * 3 odd among them): the kernel equals the plain version exactly."""
+    views = _views(sum(shape), *shape, cuda, dtype)
+    if not strided:
+        views = [v.contiguous() for v in views]
+    for threshold in (0, 40):
+        kw = dict(threshold=threshold, maxval=255)
+        want = PC.pixel_cascade_torch(*views, **kw)
+        _same(PC.pixel_cascade(*views, **kw), want)
+        _same(ops.pixel_cascade(*views, threshold=threshold, device=cuda),
+              want)
+
+
+def test_pixel_cascade_counts_over_consecutive_calls(cuda):
+    """The count words the kernel leaves zeroed: three calls in a row,
+    one with more cameras than any before (a grown workspace), then
+    fewer again; a motionless camera counts 0 each time."""
+    for i, B in enumerate((3, 3, 3, 10, 2)):
+        views = _views(i, B, 96, 128, cuda)
+        views[2][0] = views[1][0] = views[0][0]          # camera 0 is still
+        mask, counts = PC.pixel_cascade(*views, threshold=40, maxval=255)
+        _same((mask, counts), PC.pixel_cascade_torch(*views, threshold=40,
+                                                     maxval=255))
+        assert counts[0] == 0 and bool((counts[1:] > 0).all())
+
+
+@pytest.mark.parametrize("maxval", [-7, 0], ids=["negative", "zero"])
+def test_pixel_cascade_kernel_takes_any_maxval(cuda, maxval):
+    views = _views(3, 2, 40, 70, cuda)
+    _same(PC.pixel_cascade(*views, threshold=30, maxval=maxval),
+          PC.pixel_cascade_torch(*views, threshold=30, maxval=maxval))
+
+
+def test_pixel_cascade_is_one_device_operation(cuda):
+    """One call on the tick's uint8 views: one kernel, no copy or memset."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    views = _views(1, 12, 96, 128, cuda)
+    ops.pixel_cascade(*views, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.pixel_cascade(*views, device=cuda)
+        torch.cuda.synchronize()
+    assert len([e for e in prof.events()
+                if e.device_type == DeviceType.CUDA]) == 1
+
+
+@pytest.mark.parametrize("op,fill", [("max", 0), ("min", 255)],
+                         ids=["dilate", "erode"])
+@pytest.mark.parametrize("shape", PIXEL_SHAPES + PIXEL_TILE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_morph3x3_kernel_matches_plain(cuda, shape, op, fill):
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.choice([0, 255], size=shape, p=[0.6, 0.4])
+                         .astype(np.int32)).to(cuda)
+    _same((MO.morph3x3(x, op=op, fill=fill),),
+          (MO.morph3x3_torch(x, op=op, fill=fill),))
+
+
+@pytest.mark.parametrize("op,fill", [("max", 0), ("min", 255)],
+                         ids=["dilate", "erode"])
+def test_morph3x3_kernel_takes_more_frames_than_grid_z(cuda, op, fill):
+    """65,537 frames, past CUDA's grid z limit: blocks loop over cameras."""
+    rng = np.random.default_rng(65537)
+    x = torch.from_numpy(rng.choice([0, 255], size=(65537, 5, 7))
+                         .astype(np.int32)).to(cuda)
+    _same((MO.morph3x3(x, op=op, fill=fill),),
+          (MO.morph3x3_torch(x, op=op, fill=fill),))
 
 
 @pytest.mark.parametrize("name,kw", [

@@ -26,6 +26,7 @@ from repro_torch.kernels import framediff as FD
 from repro_torch.kernels import morphology as MO
 from repro_torch.kernels import ops
 from repro_torch.kernels import pixel_cascade as PC
+from torch_kernel_cases import PIXEL_SHAPES, PIXEL_TILE_SHAPES, pixel_batch
 
 #: (B, H, W): the default camera frame, sub-band, non-lane widths
 FIXED_SHAPES = [(2, 96, 128), (1, 33, 40), (3, 16, 300), (2, 100, 96),
@@ -155,10 +156,58 @@ def test_cpu_calls_run_the_plain_versions_and_never_count():
     assert (FD.LAUNCHES, MO.LAUNCHES, PC.LAUNCHES) == before
 
 
+@pytest.mark.parametrize("shape", [PIXEL_SHAPES[0], PIXEL_SHAPES[4],
+                                   *PIXEL_TILE_SHAPES[:3],
+                                   PIXEL_TILE_SHAPES[6]],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cascade_reads_uint8_camera_views_like_the_reference(shape):
+    """The uint8 views ``detect`` passes (``batch[:, k]`` of one (B, 3, H,
+    W, 3) batch, a camera stride of three frames): the wrapper and
+    ``ops.pixel_cascade`` equal the reference's plain cascade, also where
+    f1 < f0 in a channel, which uint8 subtraction would wrap."""
+    batch = pixel_batch(sum(shape), *shape)
+    assert (batch[:, 1].astype(int) < batch[:, 0]).any()
+    views = [torch.from_numpy(batch)[:, k] for k in range(3)]
+    B, H, W = shape
+    assert views[0].stride(0) == 3 * H * W * 3 and views[0].dtype == \
+        torch.uint8
+    want_mask, want_counts = jops.pixel_cascade(
+        *(jnp.asarray(batch[:, k]) for k in range(3)), threshold=40,
+        use_pallas=False)
+    for mask, counts in (PC.pixel_cascade(*views, threshold=40, maxval=255),
+                         ops.pixel_cascade(*views, device="cpu")):
+        assert mask.dtype == counts.dtype == torch.int32
+        np.testing.assert_array_equal(_np(mask), np.asarray(want_mask))
+        np.testing.assert_array_equal(_np(counts), np.asarray(want_counts))
+
+
+def test_plain_cascade_widens_uint8_before_subtracting():
+    """The plain version on uint8 frames equals itself on the same frames
+    in int32: it widens before it subtracts."""
+    batch = torch.from_numpy(pixel_batch(5, 3, 33, 40))
+    u8 = [batch[:, k] for k in range(3)]
+    got = PC.pixel_cascade_torch(*u8, threshold=25, maxval=255)
+    want = PC.pixel_cascade_torch(*(f.to(torch.int32) for f in u8),
+                                  threshold=25, maxval=255)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
+    assert int(got[1].sum()) > 0
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     f = torch.zeros((1, 8, 8, 3), dtype=torch.int32)
     with pytest.raises(TypeError, match="int32"):
         PC.pixel_cascade(f.float(), f, f, threshold=40, maxval=255)
+    with pytest.raises(TypeError, match="uint8 or int32"):
+        PC.pixel_cascade(f.long(), f.long(), f.long(), threshold=40,
+                         maxval=255)
+    with pytest.raises(TypeError, match="one dtype"):
+        PC.pixel_cascade(f.to(torch.uint8), f, f, threshold=40, maxval=255)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = f.transpose(1, 2)                  # a camera's (H, W, 3) block
+        PC.pixel_cascade(t, t, t, threshold=40, maxval=255)
+    with pytest.raises(TypeError, match="int32"):
+        FD.framediff(*(f.to(torch.uint8),) * 3, threshold=40, maxval=255)
     with pytest.raises(ValueError, match="one shape"):
         FD.framediff(f, f, f[:, :4], threshold=40, maxval=255)
     with pytest.raises(ValueError, match="op"):

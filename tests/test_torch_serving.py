@@ -482,14 +482,24 @@ def test_decode_engine_matches_reference_with_and_without_window(window):
 
 def test_make_cache_takes_the_reference_dtype_keyword():
     cfg = get_config("qwen1.5-0.5b").reduced()
-    cache = T.make_cache(cfg, 2, 8, dtype=torch.bfloat16)
+    cache = T.make_cache(cfg, 2, 8, dtype=torch.bfloat16, device="cpu")
     want = JT.make_cache(ref_get_config("qwen1.5-0.5b").reduced(), 2, 8,
                          dtype=jnp.bfloat16)
     for name in ("k", "v"):
         assert cache["layers"][name].dtype == torch.bfloat16
         assert tuple(cache["layers"][name].shape) == \
             tuple(want["layers"][name].shape)
-    assert T.make_cache(cfg, 2, 8)["layers"]["k"].dtype == torch.float32
+    assert T.make_cache(cfg, 2, 8, device="cpu")["layers"]["k"].dtype == \
+        torch.float32
+
+
+def test_make_cache_default_device_is_the_card(monkeypatch):
+    """Like ``DecodeEngine``, ``make_cache`` without ``device=`` asks for
+    the card, and raises where torch finds no CUDA device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.make_cache(cfg, 1, 4)
 
 
 def test_engine_default_device_is_the_card(port_models):

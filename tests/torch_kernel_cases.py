@@ -125,3 +125,21 @@ def label_case(seed, rows, n):
     scores = np.where(lane < lengths[:, None], s, -1.0).astype(np.float32)
     truths = np.where(lane < lengths[:, None], truths, 0.0).astype(np.float32)
     return scores, truths
+
+#: (B, H, W) of ``chip_smoke.PIXEL_SHAPES``: the default camera frame, a
+#: sub-band height, non-lane widths
+PIXEL_SHAPES = [(2, 96, 128), (1, 33, 40), (3, 16, 300), (2, 100, 96),
+                (1, 64, 129)]
+#: (B, H, W) of ``chip_smoke.PIXEL_TILE_SHAPES``: the cascade's 28 x 16
+#: and 60 x 32 tiles (the latter from 32,768 pixels a frame) and the
+#: stencil's 128 x 16, at exact multiples and one past them, W * 3 odd
+PIXEL_TILE_SHAPES = [(2, 16, 28), (1, 17, 29), (3, 33, 57), (2, 16, 128),
+                     (1, 17, 257), (1, 128, 256), (2, 161, 241),
+                     (1, 96, 600)]
+
+
+def pixel_batch(seed, B, H, W):
+    """A (B, 3, H, W, 3) uint8 batch of three random frames a camera, as
+    the renderer hands ``detect`` its frames."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (B, 3, H, W, 3)).astype(np.uint8)

@@ -19,11 +19,11 @@ device; imports nothing of JAX.
 """
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+import phase_stamps as PS
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "associate.cu"
@@ -70,14 +70,10 @@ def instrumented(src: str) -> str:
         src = src[:at] + text + src[at:]
     end = src.index("\n}\n\n}  // namespace")
     src = src[:end + 1] + EPILOGUE + src[end + 1:]
-    src = src.replace("namespace {\n", "namespace {\n\n__device__ long long* "
-                      "phase_prof;\n", 1)
     src = src.replace("  if (k == 0) {  // nothing to match\n",
                       "  if (k == 0) {  // nothing to match\n"
                       "    if (tid == 0) prof[0] = 0;\n", 1)
-    return src + ('\nextern "C" int associate_set_prof(void* p) {\n'
-                  "  return static_cast<int>(cudaMemcpyToSymbol(\n"
-                  "      phase_prof, &p, sizeof(p)));\n}\n")
+    return PS.with_record_pointer(src, "associate")
 
 
 def main() -> None:
@@ -93,22 +89,12 @@ def main() -> None:
     from repro_torch.kernels import similarity as SIM
 
     OUT.mkdir(parents=True, exist_ok=True)
-    cu = OUT / "associate_phases.cu"
-    cu.write_text(instrumented(SOURCE.read_text()))
-    lib_path = OUT / "associate_phases.so"
-    done = subprocess.run([runtime.nvcc(), *runtime.NVCC_FLAGS, "-o",
-                           str(lib_path), str(cu)], capture_output=True,
-                          text=True)
-    if done.returncode != 0:
-        sys.exit(f"assoc_phases: nvcc failed\n{done.stderr}")
-    lib = ctypes.CDLL(str(lib_path))
-    lib.associate_launch.argtypes = list(runtime.SIGNATURES["associate"])
-    lib.associate_launch.restype = ctypes.c_int
-    lib.associate_set_prof.argtypes = [ctypes.c_void_p]
+    lib = PS.build(runtime, OUT, "associate_phases",
+                   instrumented(SOURCE.read_text()), "associate",
+                   "assoc_phases")
     dev = torch.device("cuda")
     prof = torch.zeros(8, dtype=torch.int64, device=dev)
-    if lib.associate_set_prof(prof.data_ptr()) != 0:
-        sys.exit("assoc_phases: could not set the cycle buffer")
+    PS.set_records(lib, "associate", prof, "assoc_phases")
     print(CS.card_line(), flush=True)
     g = torch.Generator(device="cpu").manual_seed(5)
     for m, k, d in SHAPES:
