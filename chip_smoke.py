@@ -81,7 +81,24 @@ Phases, each fatal on failure:
    under the chunked path, under flash (36 launches) and under flash with
    SDPA in the kernel's place: finite logits, and the kernel's drift from
    the chunked path's logits within ``DEEP_DRIFT_RATIO`` x SDPA's;
-10. time the card's launch floor (an empty kernel), then each kernel and
+10. the training path (paper §IV-A/B): ``build_workload`` at
+   ``benchmarks/common.py::shared_workload``'s settings (``WORKLOAD``: 8
+   cameras, 3 edges, 240 s, 80 AdamW steps of the full-width CQ edge
+   model) on the card and on the host — integer fields identical, the
+   fine-tune's loss over its first ``TRAIN_LOSS_STEPS`` steps within
+   ``TRAIN_LOSS_ATOL``, the card's trained model scoring the same crops on
+   both devices within ``CONF_ATOL``, accuracy >= 0.65 and query items' mean
+   ``conf`` above the others' by > 0.1 on both; prints the build's split
+   (fine-tune, stream, scoring) and the steady train step beside
+   ``scheme_train_time``'s assumed 50 ms.  Then Table II's four schemes
+   over the card's stream through ``run_query`` on both devices
+   (identical summaries; ``surveiledge`` faster than ``cloud_only`` and
+   more accurate than ``edge_only``; ``cloud_only`` F2 1.0, ``edge_only``
+   0 MB; triage launches == ``kernel_launches`` > 0 for the two
+   surveiledge schemes), and the three Fig. 5 schemes from a backbone
+   pretrained on the card (step counts 40, 4 x 40, 0; All-Fine-tune's
+   summed time above SurveilEdge's);
+11. time the card's launch floor (an empty kernel), then each kernel and
    its plain version on the inputs the main paths gave it (triage and
    calibrate at every recorded shape with its launches, calibrate also at
    ``CALIBRATE_WIDE``; the pixel kernels also at 1080p, the cascade on
@@ -251,6 +268,35 @@ LOGIT_ATOL = 1e-4
 #: multiple of the drift with SDPA in the kernel's place
 DEEP_PROMPT = 2048
 DEEP_DRIFT_RATIO = 1.5
+#: the training phase's workload: ``benchmarks/common.py::shared_workload``
+#: (8 cameras, 3 edges, 240 s, 80 fine-tune steps, seed 0), the stream
+#: every paper table runs over, at the edge model's full width
+WORKLOAD = dict(num_cameras=8, num_edges=3, duration_s=240.0,
+                finetune_steps=80, seed=0)
+#: the workload built on the card against the host's build: the same init
+#: and batches, f32 on both (TF32 off).  Adam's step is about lr * sign(g),
+#: so an entry whose gradient cancels to a few ulps moves by 2 lr on one
+#: side only, and the 80-step fine-tune amplifies that: two host builds
+#: that differ only in their thread count (8 against 1) agree in loss to
+#: 1.2e-7 over steps 1-20, part past 1e-3 at step 76 and end with
+#: confidences 0.077 apart (``tools/train_divergence.py`` on an 8-core
+#: CPU host; card against host, 0.35-0.42).  So the fine-tune's
+#: loss is held over its first ``TRAIN_LOSS_STEPS`` steps within
+#: ``TRAIN_LOSS_ATOL``, the card's trained model must score the same crops
+#: on both devices within ``CONF_ATOL``, and the two streams' largest
+#: ``conf`` gap is printed, not held
+TRAIN_LOSS_STEPS = 20
+TRAIN_LOSS_ATOL = 1e-4
+#: Table II's single-edge setting (``benchmarks/table2_single_edge.py``
+#: through ``common.calibrated_scenario``, copied): a 1.0x edge serving
+#: at ``EDGE_UTILIZATION`` of the stream's mean arrival rate
+EDGE_UTILIZATION = 0.9
+TABLE2 = dict(edge_speeds=(1.0,), cloud_speedup=6.0, uplink_MBps=0.5,
+              seed=11)
+#: Fig. 5's setting (``benchmarks/fig5_training_schemes.py``): cameras,
+#: generic pretraining steps of the shared backbone
+FIG5_CAMERAS = 4
+FIG5_PRETRAIN_STEPS = 20
 
 
 def fail(msg: str) -> None:
@@ -1376,6 +1422,192 @@ def deep_logit_gap(torch, dev) -> dict:
     return row
 
 
+def training_phase(torch, T, zero_counts) -> dict:
+    """Cloud-side training on the card (paper §IV-A/B): the shared
+    workload built on the card and on the host (``WORKLOAD``), Table II's
+    four schemes over the card's stream through ``run_query`` on both
+    devices, and the three Fig. 5 training schemes on the card.  Returns
+    the phase's numbers and the recorder of its triage launches."""
+    import numpy as np
+    from repro_torch.core import finetune as FT
+    from repro_torch.data import synthetic_video as SV
+    from repro_torch.models.transformer import CQClassifier
+    from repro_torch.serving.workload import _binary_batches, build_workload
+    from repro_torch.system import SCHEMES, Scenario, run_query
+    from repro_torch.system.pixel_frontend import cq_config
+
+    def fields(wl):
+        return [(i.t_arrival, i.camera, i.edge_device, i.is_query, i.nbytes,
+                 i.query) for i in wl.items]
+
+    t0 = time.perf_counter()
+    wl = build_workload(**WORKLOAD, device="cuda")
+    torch.cuda.synchronize()
+    wl_cuda_s = time.perf_counter() - t0
+    if wl.edge_params["embed"].device.type != "cuda":
+        fail("the workload's edge model was not trained on the card")
+    t0 = time.perf_counter()
+    wl_cpu = build_workload(**WORKLOAD, device="cpu")
+    wl_cpu_s = time.perf_counter() - t0
+    if len(wl.items) != len(wl_cpu.items) or fields(wl) != fields(wl_cpu):
+        fail(f"workload integer fields differ between cuda and cpu "
+             f"({len(wl.items)} against {len(wl_cpu.items)} items)")
+    gap = max(abs(a.conf - b.conf) for a, b in zip(wl.items, wl_cpu.items))
+    loss_gap = [abs(a - b) for a, b in zip(wl.step_losses,
+                                           wl_cpu.step_losses)]
+    first_far = next((i + 1 for i, g in enumerate(loss_gap) if g > 1e-3),
+                     None)
+    # the card's trained model on both devices, over the eval crops and a
+    # fresh batch of every class
+    crops = [next(_binary_batches(np.random.default_rng(WORKLOAD["seed"] + 99),
+                                  wl.edge_cfg, np.full(SV.NUM_CLASSES, 1.0),
+                                  None, SV.QUERY_CLASS, batch=256))[0],
+             torch.from_numpy(SV.labeled_crop_batch(
+                 np.arange(256) % SV.NUM_CLASSES, np.random.default_rng(5),
+                 wl.edge_cfg.vocab_size)[0])]
+    on_card = CQClassifier(wl.edge_cfg, wl.edge_params, device="cuda")
+    on_host = CQClassifier(wl.edge_cfg, wl.edge_params, device="cpu")
+    score_gap = max(float((on_card(t).cpu() - on_host(t)).abs().max())
+                    for t in crops)
+    step_ms = [1e3 * s for s in wl.step_seconds]
+    steady_ms = float(np.median(step_ms[5:]))
+    assumed_ms = 1e3 * FT.scheme_train_time("surveiledge", 1) / FT.FIG5_STEPS
+    sep = {}
+    for name, w in (("cuda", wl), ("cpu", wl_cpu)):
+        conf = np.asarray([i.conf for i in w.items])
+        truth = np.asarray([i.is_query for i in w.items])
+        sep[name] = float(conf[truth].mean() - conf[~truth].mean())
+        if not w.edge_accuracy >= 0.65:
+            fail(f"{name} edge model accuracy {w.edge_accuracy} < 0.65")
+        if not sep[name] > 0.1:
+            fail(f"{name} query items' mean conf exceeds the others' by "
+                 f"{sep[name]} <= 0.1")
+    print(f"workload: {len(wl.items)} items; cuda {wl_cuda_s:.2f} s "
+          f"(fine-tune {wl.timings['finetune_s']:.3f} s, stream "
+          f"{wl.timings['stream_s']:.3f} s, scoring "
+          f"{wl.timings['score_s']:.3f} s), cpu {wl_cpu_s:.2f} s "
+          f"(fine-tune {wl_cpu.timings['finetune_s']:.3f} s); clusters "
+          f"{wl.clusters.tolist()}; accuracy cuda {wl.edge_accuracy:.4f} "
+          f"cpu {wl_cpu.edge_accuracy:.4f}; conf separation cuda "
+          f"{sep['cuda']:.4f} cpu {sep['cpu']:.4f}; integer fields "
+          f"identical, max |dconf| {gap:.3g} (not held)", flush=True)
+    print(f"fine-tune loss, card vs host: steps 1-{TRAIN_LOSS_STEPS} within "
+          f"{max(loss_gap[:TRAIN_LOSS_STEPS]):.3g}, first gap over 1e-3 at "
+          f"step {first_far}, step {len(loss_gap)} gap {loss_gap[-1]:.3g}; "
+          f"the card's trained model scores 512 crops on both devices "
+          f"within {score_gap:.3g}", flush=True)
+    print(f"train step on the card: first {step_ms[0]:.2f} ms, steady "
+          f"(median of steps 6-{len(step_ms)}) {steady_ms:.3f} ms, against "
+          f"scheme_train_time's assumed {assumed_ms:.0f} ms a step",
+          flush=True)
+    if not max(loss_gap[:TRAIN_LOSS_STEPS]) <= TRAIN_LOSS_ATOL:
+        fail(f"fine-tune losses of steps 1-{TRAIN_LOSS_STEPS} differ by "
+             f"{max(loss_gap[:TRAIN_LOSS_STEPS])} > {TRAIN_LOSS_ATOL} "
+             f"between cuda and cpu")
+    if not score_gap <= CONF_ATOL:
+        fail(f"the trained model's conf differs by {score_gap} > "
+             f"{CONF_ATOL} between cuda and cpu")
+
+    duration = max(it.t_arrival for it in wl.items)
+    rate = len(wl.items) / duration
+    sc = Scenario(name="table2_single_edge", duration_s=duration,
+                  edge_service_s=EDGE_UTILIZATION
+                  * len(TABLE2["edge_speeds"]) / rate, **TABLE2)
+    rows, launches, run_s = {}, {}, {}
+    with Recorder(T, "triage_fleet") as tri:
+        for scheme in SCHEMES:
+            zero_counts()
+            t0 = time.perf_counter()
+            rows[scheme] = run_query(sc.with_scheme(scheme), items=wl.items,
+                                     device="cuda").summary()
+            torch.cuda.synchronize()
+            run_s[scheme] = time.perf_counter() - t0
+            launches[scheme] = T.LAUNCHES
+    for scheme in SCHEMES:
+        s_cpu = run_query(sc.with_scheme(scheme), items=wl.items,
+                          device="cpu").summary()
+        if rows[scheme] != s_cpu:
+            diff = {k: (rows[scheme][k], s_cpu.get(k)) for k in rows[scheme]
+                    if rows[scheme][k] != s_cpu.get(k)}
+            fail(f"Table II {scheme} summary differs between cuda and cpu: "
+                 f"{diff}")
+    print("Table II (single edge, the card's stream): " + "; ".join(
+        f"{k} F2 {r['accuracy_F2']} avg {r['avg_latency_s']} s p99 "
+        f"{r['p99_latency_s']} s {r['bandwidth_MB']} MB triage launches "
+        f"{launches[k]} in {run_s[k]:.3f} s" for k, r in rows.items())
+        + "; every summary identical to cpu", flush=True)
+    se, co, eo = rows["surveiledge"], rows["cloud_only"], rows["edge_only"]
+    if not se["avg_latency_s"] < co["avg_latency_s"]:
+        fail("Table II: surveiledge is not faster than cloud_only")
+    if not se["accuracy_F2"] > eo["accuracy_F2"]:
+        fail("Table II: surveiledge is not more accurate than edge_only")
+    if co["accuracy_F2"] != 1.0 or eo["bandwidth_MB"] != 0:
+        fail(f"Table II: cloud_only F2 {co['accuracy_F2']} (want 1.0), "
+             f"edge_only bandwidth {eo['bandwidth_MB']} MB (want 0)")
+    for scheme in ("surveiledge", "surveiledge_fixed"):
+        if not 0 < launches[scheme] == rows[scheme]["kernel_launches"]:
+            fail(f"Table II {scheme}: triage launches {launches[scheme]} vs "
+                 f"kernel_launches {rows[scheme]['kernel_launches']} (must "
+                 f"be equal and > 0)")
+
+    cfg = cq_config()
+    cams = SV.make_cameras(FIG5_CAMERAS, seed=0)
+    profile = np.mean([c.class_mix for c in cams], axis=0)
+
+    def pretrain_iter():
+        r = np.random.default_rng(1)
+        while True:
+            cls = r.integers(0, SV.NUM_CLASSES, size=64)
+            tokens, labels = SV.labeled_crop_batch(cls, r, cfg.vocab_size)
+            yield torch.from_numpy(tokens), torch.from_numpy(
+                (labels == SV.QUERY_CLASS).astype(np.int32))
+
+    def batches(seed, mix):
+        return lambda: _binary_batches(np.random.default_rng(seed), cfg, mix,
+                                       None, SV.QUERY_CLASS)
+
+    t0 = time.perf_counter()
+    pre = FT.pretrain_backbone(cfg, torch.Generator().manual_seed(0),
+                               pretrain_iter(), steps=FIG5_PRETRAIN_STEPS,
+                               device="cuda")
+    pre_s = time.perf_counter() - t0
+    ev = next(_binary_batches(np.random.default_rng(99), cfg, profile, None,
+                              SV.QUERY_CLASS, batch=256))
+    cam_fns = {c.cam_id: batches(10 + c.cam_id, c.class_mix) for c in cams}
+    fig5 = {s: FT.run_scheme(s, cfg, pre, batches(2, profile), cam_fns, ev)
+            for s in FT.FIG5_SCHEMES}
+    fig5_rows = {s: {"steps": [r.steps for r in res.values()],
+                     "train_s": sum(r.train_seconds for r in res.values()),
+                     "accuracy": float(np.mean([r.accuracy
+                                                for r in res.values()]))}
+                 for s, res in fig5.items()}
+    print(f"Fig. 5 ({FIG5_CAMERAS} cameras, pretrained {FIG5_PRETRAIN_STEPS} "
+          f"steps in {pre_s:.2f} s): " + "; ".join(
+              f"{s} accuracy {r['accuracy']:.4f} train {r['train_s']:.3f} s "
+              f"steps {r['steps']}" for s, r in fig5_rows.items()),
+          flush=True)
+    want = {"surveiledge": [FT.FIG5_STEPS],
+            "all_finetune": [FT.FIG5_STEPS] * FIG5_CAMERAS,
+            "no_finetune": [0]}
+    if {s: r["steps"] for s, r in fig5_rows.items()} != want:
+        fail(f"Fig. 5 step counts {fig5_rows}, want {want}")
+    if not fig5_rows["all_finetune"]["train_s"] > \
+            fig5_rows["surveiledge"]["train_s"]:
+        fail("Fig. 5: all_finetune trained no longer than surveiledge")
+    return {"recorder": tri, "triage_launches": launches,
+            "workload": {"items": len(wl.items), "cuda_s": wl_cuda_s,
+                         "cpu_s": wl_cpu_s, "split_cuda_s": wl.timings,
+                         "split_cpu_s": wl_cpu.timings,
+                         "accuracy_cuda": wl.edge_accuracy,
+                         "accuracy_cpu": wl_cpu.edge_accuracy,
+                         "conf_separation": sep, "max_abs_dconf": gap,
+                         "loss_gap": loss_gap, "score_gap": score_gap,
+                         "step_ms": step_ms, "steady_step_ms": steady_ms,
+                         "assumed_step_ms": assumed_ms},
+            "table2": {k: {**r, "cuda_s": run_s[k]} for k, r in rows.items()},
+            "fig5": {"pretrain_s": pre_s, **fig5_rows}}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -1769,6 +2001,13 @@ def main() -> None:
     serving = serving_phase(torch, dev, zero_counts, read_counts)
     deep = deep_logit_gap(torch, dev)
 
+    phase("training path: the shared workload (8 cameras, 3 edges, 240 s, "
+          "80 steps) trained and scored on the card, Table II, Fig. 5")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: they would move the trained weights")
+    training = training_phase(torch, T, zero_counts)
+    tri_train = training.pop("recorder")
+
     phase("timing on the main paths' inputs")
     # the card's launch floor: triage.cu's empty kernel, the same build,
     # hold and reps as the kernels it is read against
@@ -1777,7 +2016,7 @@ def main() -> None:
           flush=True)
     # triage: every recorded main-path input re-checked, every shape
     # timed with its launches, city_scale's largest (64, 64) the row's
-    tri_recs = (tri_city, tri_drift, tri_pixel)
+    tri_recs = (tri_city, tri_drift, tri_pixel, tri_train)
     tri_inputs, tri_counts = {}, {}
     for rec in tri_recs:
         for shape, n in rec.counts.items():
@@ -1993,15 +2232,18 @@ def main() -> None:
     if ss_shapes["run"]["launches"] != sum(ss_paths.values()):
         fail(f"the recorders saw {ss_shapes['run']['launches']} superstep "
              f"calls, the counter {sum(ss_paths.values())}")
+    tri_train_paths = {f"table2_{k}": n for k, n in
+                       training["triage_launches"].items()}
     kernels = [
         {"name": "triage_fleet", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/triage.cu",
          "replaces": "src/repro/kernels/triage.py:111",
          "launches": city_launches[0] + drift_launches[0]
-         + pixel_counts["triage"],
+         + pixel_counts["triage"] + sum(tri_train_paths.values()),
          "launches_by_path": {"city_scale": city_launches[0],
                               "drifting_city": drift_launches[0],
-                              "pixel_city": pixel_counts["triage"]},
+                              "pixel_city": pixel_counts["triage"],
+                              **tri_train_paths},
          "shape": list(conf.shape), "max_abs_err": t_err,
          "checked_inputs": sum(len(r.inputs) for r in tri_recs),
          "ms": t_ms, "plain_ms": t_plain, "bound_ms": t_bound,
@@ -2092,7 +2334,8 @@ def main() -> None:
                              "identical_to_cpu": True,
                              "superstep1_bit_identical": True},
         **track,
-        "serving": {k: v for k, v in serving.items() if k != "recorder"}},
+        "serving": {k: v for k, v in serving.items() if k != "recorder"},
+        "training": training},
         "total_s": time.perf_counter() - t_all}))
     for row in kernels:
         row["over_floor_ms"] = row["ms"] - floor_ms

@@ -10,11 +10,13 @@ or prompt).  Per item:
 The query pipeline routes its ticks with the triage kernel
 (``kernels/triage.py``); the serving launcher routes a request batch with
 ``triage`` and gathers the escalated prompts with ``compact_escalated``,
-as the reference's ``core/cascade.py`` does.
+as the reference's ``core/cascade.py`` does.  ``cascade_batch`` runs both
+models over one batch, and ``CascadePair`` wires two models together.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -50,3 +52,50 @@ def compact_escalated(routes: torch.Tensor, capacity: int
     valid = torch.arange(capacity, device=routes.device) < torch.clamp(
         n, max=capacity)
     return idx, valid, n
+
+
+def cascade_batch(edge_conf: torch.Tensor,
+                  cloud_fn: Callable[[torch.Tensor], torch.Tensor],
+                  items: torch.Tensor,
+                  alpha: float, beta: float,
+                  capacity: int) -> Dict[str, torch.Tensor]:
+    """The cascade over one batch.
+
+    edge_conf: (B,) edge confidences; items: (B, ...) payloads to send to
+    ``cloud_fn`` (which maps (capacity, ...) -> (capacity,) confidences).
+    Returns dict with final decisions (B,), routes, and stats.  An
+    escalated item takes the cloud's decision (conf > 0.5); the padded
+    slots past the escalated count write nothing.
+    """
+    B = edge_conf.shape[0]
+    routes = triage(edge_conf, alpha, beta)
+    idx, valid, n_esc = compact_escalated(routes, capacity)
+    esc_items = torch.index_select(items, 0, idx)
+    cloud_dec = cloud_fn(esc_items) > 0.5                # (capacity,)
+    final = routes == ACCEPT                             # edge accepts
+    final[idx[valid].long()] = cloud_dec[valid]
+    return {
+        "decision": final,                               # (B,) bool: query object?
+        "routes": routes,
+        "edge_conf": edge_conf,
+        "n_escalated": n_esc,
+        "escalated_frac": n_esc / B,
+    }
+
+
+@dataclasses.dataclass
+class CascadePair:
+    """An (edge CQ-specific model, cloud high-accuracy model) pair."""
+    edge_cfg: Any
+    cloud_cfg: Any
+    edge_apply: Callable      # (params, batch) -> (B, C) logits
+    cloud_apply: Callable
+    query_class: int = 1
+
+    def edge_confidence(self, edge_params, batch) -> torch.Tensor:
+        return confidence_from_logits(
+            self.edge_apply(edge_params, batch), self.query_class)
+
+    def cloud_confidence(self, cloud_params, batch) -> torch.Tensor:
+        return confidence_from_logits(
+            self.cloud_apply(cloud_params, batch), self.query_class)

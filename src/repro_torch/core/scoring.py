@@ -2,8 +2,9 @@
 
 The paper reports F2 (recall-weighted F-measure) against the cloud model's
 output treated as ground truth.  Kept in one place so the guard behaviour
-(empty classes, zero denominators) is defined once for
-``repro_torch.system.QueryReport`` and every later evaluation substrate.
+(empty classes, zero denominators) cannot diverge between
+``repro_torch.serving.simulator.SimResult`` and
+``repro_torch.system.QueryReport``.
 """
 from __future__ import annotations
 

@@ -140,10 +140,11 @@ def leaves(tree: Tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, val
 
 
-def tree_map(fn: Callable, tree: Tree) -> Tree:
-    """The same nested dict with ``fn`` applied to every leaf."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """The same nested dict with ``fn`` applied to every leaf, and to the
+    matching leaves of ``rest`` (trees of the same structure) beside it."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
 def _init_leaf(meta: ParamMeta, gen: torch.Generator) -> torch.Tensor:

@@ -1,2 +1,4 @@
 """Serving layer: message bus and links, admission control, alerts, the
-asyncio driver (``engine``) and the ``Item`` detection record."""
+asyncio driver (``engine``), the ``Item`` detection record and the legacy
+``CloudEdgeSim`` (``simulator``), and the trained, scored detection
+stream (``workload``)."""

@@ -448,3 +448,28 @@ def test_superstep_and_track_runs_on_card(cuda, name, kw):
     assert SIM.LAUNCHES == rep.track_launches
     assert SS.LAUNCHES + SIM.LAUNCHES > 0
     assert got == P.run_query(sc, device="cpu").summary()
+
+
+def test_workload_trains_and_scores_on_the_card(cuda):
+    """The training slice on the card at tier-1 size: the same integer
+    fields as the host's build, ``conf`` within 1e-4 after 10 AdamW steps
+    (``tests/test_torch_workload.py``'s tolerance against the reference;
+    the fine-tune is chaotic only over many more steps, see
+    ``chip_smoke.TRAIN_LOSS_STEPS``), the trained weights on the card, and
+    the stream's triage launches counted."""
+    from repro_torch.serving.workload import build_workload
+    kw = dict(num_cameras=4, num_edges=2, duration_s=40.0, finetune_steps=10,
+              seed=3)
+    got = build_workload(**kw, device="cuda")
+    want = build_workload(**kw, device="cpu")
+    assert got.edge_params["embed"].is_cuda
+    assert [(i.t_arrival, i.camera, i.edge_device, i.is_query)
+            for i in got.items] == [(i.t_arrival, i.camera, i.edge_device,
+                                     i.is_query) for i in want.items]
+    assert max(abs(a.conf - b.conf)
+               for a, b in zip(got.items, want.items)) <= 1e-4
+    sc = P.single_edge(duration_s=40.0)
+    T.LAUNCHES = 0
+    rep = P.run_query(sc, items=got.items, device="cuda").summary()
+    assert T.LAUNCHES == rep["kernel_launches"] > 0
+    assert rep == P.run_query(sc, items=got.items, device="cpu").summary()

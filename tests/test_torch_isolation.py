@@ -78,6 +78,10 @@ def test_running_the_port_loads_no_jax():
         "out = srv.run([Request(rid=i, tokens=np.arange(8 + i) % 512, "
         "max_new=3) for i in range(3)])\n"
         "assert all(len(o.output) == 3 for o in out.values())\n"
+        "from repro_torch.serving.workload import build_workload\n"
+        "w = build_workload(num_cameras=2, num_edges=1, duration_s=5.0, "
+        "finetune_steps=2, device='cpu')\n"
+        "assert w.items and w.edge_accuracy == w.edge_accuracy\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -93,6 +97,34 @@ def test_default_device_is_the_card():
         pytest.skip("the refusal only happens on a host without CUDA")
     with pytest.raises(RuntimeError, match="CUDA"):
         run_query(P.single_edge(duration_s=5.0))
+
+
+def _training_entries():
+    """The training slice's public entry points, each called without a
+    device."""
+    from repro_torch import finetune_cq, quickstart, serve_cascade
+    from repro_torch.core.finetune import pretrain_backbone
+    from repro_torch.serving.workload import build_workload
+    from repro_torch.system.pixel_frontend import cq_config
+    return {
+        "build_workload": lambda: build_workload(
+            num_cameras=2, duration_s=5.0, finetune_steps=1),
+        "pretrain_backbone": lambda: pretrain_backbone(
+            cq_config(), torch.Generator().manual_seed(0), iter(())),
+        "finetune_cq": lambda: finetune_cq.main([]),
+        "quickstart": lambda: quickstart.main([]),
+        "serve_cascade": lambda: serve_cascade.main([]),
+    }
+
+
+@pytest.mark.parametrize("name", ["build_workload", "pretrain_backbone",
+                                  "finetune_cq", "quickstart",
+                                  "serve_cascade"])
+def test_training_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        pytest.skip("the refusal only happens on a host without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _training_entries()[name]()
 
 
 def test_pipeline_default_device_is_the_card():
