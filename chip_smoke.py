@@ -33,8 +33,9 @@ Phases, each fatal on failure:
    within ``SIM_ATOL``; flash
    attention, causal and not, within ``FLASH_ATOL`` at ``FLASH_SHAPES``
    (the reference test's, Sq 64 against Sk 256, Sq = Sk = 1000, head dims
-   16 to 256, qwen1.5-0.5b's and qwen3-8b's prefill) and in bf16, and on
-   the model's (B, S, H, hd) views;
+   16 to 256, qwen1.5-0.5b's and qwen3-8b's prefill, chatglm3-6b's GQA
+   16:1 and command-r-35b's 8:1 at hd 128) and in bf16 (hd 128 included),
+   and on the model's (B, S, H, hd) views;
 4. the main path: ``run_query(city_scale(), device="cuda")`` at full size
    (64 edges, 512 cameras, 60 s) with the launch counters zeroed just
    before and read just after; the same run with ``device="cpu"`` must
@@ -81,7 +82,21 @@ Phases, each fatal on failure:
    under the chunked path, under flash (36 launches) and under flash with
    SDPA in the kernel's place: finite logits, and the kernel's drift from
    the chunked path's logits within ``DEEP_DRIFT_RATIO`` x SDPA's;
-10. the training path (paper §IV-A/B): ``build_workload`` at
+10. the dense family (``dense_family_phase``): speculative decoding on
+   full-width qwen1.5-0.5b (flash) with its edge variant, at the cloud's
+   vocabulary, as the draft, 4 prompts of 64 to 1,024 tokens, 16 tokens,
+   k = 4: tokens equal to ``cloud_greedy_generate`` on the card under the
+   near-tie rule, the cloud drafting for itself accepts everything, flash
+   launches 24 x cloud prefills (twice that self-drafting), the card's
+   tokens equal the host's at 2 layers; the int8 KV cache through
+   ``CascadeServer`` on the serving phase's prompts (a 1,024-token
+   prefill and decode step within ``INT8_KV_RTOL`` of the f32 cache's,
+   card against host at 2 layers); int8 weights (prefill logits within
+   ``INT8_WEIGHT_RTOL`` of the f32 model's, 24 bf16 flash launches, 16
+   decode steps through ``DecodeEngine``); chatglm3-6b and command-r-35b
+   at full width, 2 layers, drawn on the host (a 1,024-token prefill and
+   16 decode steps, flash against chunked on the card);
+11. the training path (paper §IV-A/B): ``build_workload`` at
    ``benchmarks/common.py::shared_workload``'s settings (``WORKLOAD``: 8
    cameras, 3 edges, 240 s, 80 AdamW steps of the full-width CQ edge
    model) on the card and on the host — integer fields identical, the
@@ -98,15 +113,16 @@ Phases, each fatal on failure:
    surveiledge schemes), and the three Fig. 5 schemes from a backbone
    pretrained on the card (step counts 40, 4 x 40, 0; All-Fine-tune's
    summed time above SurveilEdge's);
-11. time the card's launch floor (an empty kernel), then each kernel and
+12. time the card's launch floor (an empty kernel), then each kernel and
    its plain version on the inputs the main paths gave it (triage and
    calibrate at every recorded shape with its launches, calibrate also at
    ``CALIBRATE_WIDE``; the pixel kernels also at 1080p, the cascade on
    the tick's uint8 views, on int32 frames and beside the five operations
    that widened the views first; flash attention
    and SDPA at
-   every prefill length of the serving run, summed over its launches,
-   and at qwen3-8b's prefill, in f32 and in bf16; the superstep at every
+   every prefill length of the serving run and of the speculative runs,
+   summed over their launches, at qwen3-8b's prefill, in f32 and in bf16,
+   and at the dense family's prefills; the superstep at every
    slab shape of the three metropolis runs and the association at every
    (M, K, D) of the track runs, each with its launches, bound and the
    run's sum), and print
@@ -122,6 +138,7 @@ the port's sources are not beside this script.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -239,14 +256,21 @@ HOST_METRO_BUDGET_S = 420.0
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: (B, H, KV, Sq, Sk, hd): ``tests/test_flash_attention.py``'s shapes, a
 #: query chunk against a longer cache, non-tile lengths, the head dims of
-#: the other tilings, qwen1.5-0.5b's 1,024-token prefill and qwen3-8b's
-#: GQA prefill
+#: the other tilings, qwen1.5-0.5b's 1,024-token prefill, qwen3-8b's GQA
+#: prefill, and the dense-family phase's: chatglm3-6b's GQA 16:1 and
+#: command-r-35b's 8:1 at hd 128, on and off the tile
 FLASH_SHAPES = [(1, 2, 2, 128, 128, 32), (2, 4, 2, 256, 256, 64),
                 (1, 8, 2, 128, 128, 32), (1, 2, 1, 192, 192, 16),
                 (1, 4, 4, 64, 256, 32), (1, 4, 2, 1000, 1000, 64),
                 (1, 2, 2, 300, 300, 96), (1, 2, 1, 130, 130, 256),
-                (1, 16, 16, 1024, 1024, 64), (1, 32, 8, 2048, 2048, 128)]
-FLASH_BF16_SHAPES = [(1, 2, 2, 128, 128, 32), (1, 16, 16, 1024, 1024, 64)]
+                (1, 16, 16, 1024, 1024, 64), (1, 32, 8, 2048, 2048, 128),
+                (1, 32, 2, 1024, 1024, 128), (1, 64, 8, 1024, 1024, 128),
+                (1, 32, 2, 1001, 1001, 128)]
+#: bf16 (int8 weights compute in bf16): the same edge and serving shapes,
+#: and the dense family's GQA at hd 128
+FLASH_BF16_SHAPES = [(1, 2, 2, 128, 128, 32), (1, 16, 16, 1024, 1024, 64),
+                     (1, 32, 2, 1024, 1024, 128), (1, 64, 8, 1024, 1024, 128),
+                     (1, 64, 8, 1001, 1001, 128)]
 #: qwen3-8b's GQA prefill (B, H, KV, Sq, Sk, hd), timed beside the serving
 #: shapes
 QWEN3_8B_PREFILL = (1, 32, 8, 2048, 2048, 128)
@@ -297,6 +321,30 @@ TABLE2 = dict(edge_speeds=(1.0,), cloud_speedup=6.0, uplink_MBps=0.5,
 #: generic pretraining steps of the shared backbone
 FIG5_CAMERAS = 4
 FIG5_PRETRAIN_STEPS = 20
+#: the dense-family phase: speculative decoding's prompt lengths, new
+#: tokens and draft length on full-width qwen1.5-0.5b; the prompt and
+#: decode steps of chatglm3-6b and command-r-35b at full width, cut to
+#: ``DENSE_LAYERS`` layers
+SPEC_LENGTHS = (64, 256, 512, 1024)
+SPEC_STEPS = 16
+SPEC_K = 4
+#: the speculative runs' cloud is the serving phase's qwen1.5-0.5b with
+#: its layer matrices scaled by ``SPEC_GAIN``: at the init scale a
+#: tied-embedding model's greedy token is its input token, so every draft
+#: is accepted; scaled, the trunk picks the token
+SPEC_GAIN = 3.0
+GAINED = ("wq", "wk", "wv", "wo", "wi", "wg")
+DENSE_PROMPT = 1024
+DENSE_NEW = 16
+DENSE_LAYERS = 2
+#: the reference's own bounds (``tests/test_quantize.py``), relative to
+#: the largest logit: int8-KV decode logits against the f32 cache's, and
+#: int8-weight logits against the f32 model's
+INT8_KV_RTOL = 0.02
+INT8_WEIGHT_RTOL = 0.06
+#: a shorter hold for sweeps over many small flash shapes: it covers the
+#: enqueue of a few dozen launches
+SHORT_HOLD_CYCLES = 20_000_000
 
 
 def fail(msg: str) -> None:
@@ -316,14 +364,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, reps: int) -> float:
+def device_ms(torch, fn, reps: int, hold: int = HOLD_CYCLES) -> float:
     """Stream time per call of ``fn``: a held stream lets the host enqueue
     all ``reps`` calls before the first runs."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
+    torch.cuda._sleep(hold)
     start.record()
     for _ in range(reps):
         fn()
@@ -675,7 +723,6 @@ class Recorder:
 
     def __init__(self, module, attr: str, keep_all: bool = False):
         self.module, self.attr = module, attr
-        self.inner = getattr(module, attr)
         self.inputs = {}
         self.layouts = {}
         self.counts = {}
@@ -683,6 +730,8 @@ class Recorder:
         self.calls = []
 
     def __enter__(self):
+        self.inner = getattr(self.module, self.attr)
+
         def wrapped(*args, **kw):
             key = tuple(args[0].shape)
             self.counts[key] = self.counts.get(key, 0) + 1
@@ -948,6 +997,25 @@ class ServeTap:
         del self.engine.admit, self.engine.step
 
 
+def same_tokens(what: str, got, want, margins) -> list:
+    """Token rows (tensors or arrays) equal, or differing first where the
+    plain run's (``want``'s) top-2 margin is below ``LOGIT_ATOL``, after
+    which a flip is allowed.  Returns the flips, [(position, margin)]."""
+    g, w = got.flatten().tolist(), want.flatten().tolist()
+    if g == w:
+        return []
+    k = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+             min(len(g), len(w)))
+    margin = margins[k] if k < len(margins) else float("inf")
+    print(f"{what}: first differs at step {k}: {g[k:k + 3]} vs "
+          f"{w[k:k + 3]}, top-2 margin {margin:.3g} in the plain run",
+          flush=True)
+    if len(g) != len(w) or not margin < LOGIT_ATOL:
+        fail(f"{what}: tokens differ at step {k} where the plain run's "
+             f"top-2 margin {margin} is not below {LOGIT_ATOL}")
+    return [(k, margin)]
+
+
 def same_serving(what: str, got: dict, want: dict, got_tap, want_tap) -> dict:
     """Routes equal; a cloud request's tokens equal up to the first step
     whose top-2 margin in the plain run (``want``) is below
@@ -960,24 +1028,13 @@ def same_serving(what: str, got: dict, want: dict, got_tap, want_tap) -> dict:
         g, w = got[rid], want[rid]
         if g.route != w.route:
             fail(f"{what}: request {rid} routed {g.route} vs {w.route}")
-        go, wo = list(g.output), list(w.output)
+        margins = []
         if w.route == "cloud":
             logit_err = max(logit_err, float(
                 (got_tap.logits[rid] - want_tap.logits[rid]).abs().max()))
-        if go == wo:
-            continue
-        k = next((i for i, (a, b) in enumerate(zip(go, wo)) if a != b),
-                 min(len(go), len(wo)))
-        margin = want_tap.margins[rid][k] if w.route == "cloud" and \
-            k < len(want_tap.margins[rid]) else float("inf")
-        print(f"{what}: request {rid} first differs at step {k}: {go[k:k+3]}"
-              f" vs {wo[k:k+3]}, top-2 margin {margin:.3g} in the plain run",
-              flush=True)
-        if len(go) != len(wo) or not margin < LOGIT_ATOL:
-            fail(f"{what}: request {rid} tokens differ at step {k} where the "
-                 f"plain run's top-2 margin {margin} is not below "
-                 f"{LOGIT_ATOL}")
-        ties.append((rid, k, margin))
+            margins = want_tap.margins[rid]
+        ties += [(rid, *flip) for flip in same_tokens(
+            f"{what}: request {rid}", g.output, w.output, margins)]
     if not logit_err <= LOGIT_ATOL:
         fail(f"{what}: prefill logits differ by {logit_err} > {LOGIT_ATOL}")
     min_margin = min(m for rid, ms in want_tap.margins.items() for m in ms)
@@ -1076,12 +1133,12 @@ def time_pixel_kernels(torch, F, FD, MO, PC, dev, recorders: dict,
     fd_kw = dict(threshold=40, maxval=255)
     dilate_kw = dict(op="max", fill=0)
     specs = {   # name: (source, TPU kernel, kernel, plain, 1080p args)
-        "pixel_cascade": ("pixel_cascade.cu", "pixel_cascade.py:123",
+        "pixel_cascade": ("pixel_cascade.cu", "pixel_cascade.py:151",
                           PC.pixel_cascade, PC.pixel_cascade_torch,
                           (*hd, fd_kw)),
-        "framediff": ("framediff.cu", "framediff.py:39", FD.framediff,
+        "framediff": ("framediff.cu", "framediff.py:55", FD.framediff,
                       FD.framediff_torch, (*hd, fd_kw)),
-        "morph3x3": ("morphology.cu", "morphology.py:88", MO.morph3x3,
+        "morph3x3": ("morphology.cu", "morphology.py:96", MO.morph3x3,
                      MO.morph3x3_torch,
                      (FD.framediff(*hd, **fd_kw), dilate_kw)),
     }
@@ -1236,6 +1293,60 @@ def decode_tick_trace(torch, cfg, params, prompts) -> dict:
     return row
 
 
+def serve_run(torch, bench: dict, cfg, params, device, zero_counts,
+              read_counts):
+    """One ``CascadeServer`` run of ``bench``'s prompts (the serving
+    phase's edge model, thresholds and cache length) with ``cfg`` as the
+    cloud model on ``device``, the launch counters zeroed just before and
+    read just after.  Fails unless every cloud request had one prefill,
+    flash launched layers x prefills times (on the card under flash, else
+    never) and every request was answered in full.  Returns the results,
+    the ``ServeTap`` and the run's row."""
+    from repro_torch.core.thresholds import ThresholdState
+    from repro_torch.models import transformer as TR
+    from repro_torch.serving.engine import CascadeServer, Request
+    prompts = bench["prompts"]
+    srv = CascadeServer(bench["edge_cfg"], bench["edge"], cfg, params,
+                        slots=SERVE_SLOTS, cache_len=bench["cache_len"],
+                        device=device,
+                        thresholds=ThresholdState(**bench["thresholds"]))
+    reqs = [Request(rid=i, tokens=p, max_new=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    with ServeTap(torch, TR, srv.engine) as tap:
+        zero_counts()
+        t0 = time.perf_counter()
+        res = srv.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    del srv
+    routes = [res[i].route for i in range(len(prompts))]
+    n_cloud = routes.count("cloud")
+    row = {"wall_s": wall, "prefill_s": tap.prefill_s,
+           "decode_s": tap.decode_s, "cloud_prefills": tap.prefills,
+           "prefill_tokens": tap.prefill_tokens,
+           "decode_tokens": tap.decode_tokens,
+           "prefill_tok_s": tap.prefill_tokens / tap.prefill_s,
+           "decode_tok_s": tap.decode_tokens / tap.decode_s,
+           "split": {r: routes.count(r) for r in sorted(set(routes))},
+           "flash_launches": counts["flash_attention"]}
+    print(f"{cfg.num_layers} layers, {cfg.attn_impl}, kv "
+          f"{cfg.kv_cache_dtype}, {device}: {json.dumps(row)}", flush=True)
+    if tap.prefills != n_cloud or not 0 < n_cloud < len(prompts):
+        fail(f"{n_cloud} cloud routes, {tap.prefills} prefills: want "
+             f"one prefill a cloud request, and both edge and cloud")
+    want = cfg.num_layers * n_cloud if cfg.attn_impl == "flash" and \
+        torch.device(device).type == "cuda" else 0
+    if counts["flash_attention"] != want:
+        fail(f"flash launches {counts['flash_attention']} != {want} "
+             f"({cfg.num_layers} layers x {n_cloud} cloud prefills)")
+    for r in res.values():
+        n = SERVE_NEW if r.route == "cloud" else 1
+        if r.output is None or len(r.output) != n:
+            fail(f"request {r.rid} ({r.route}) answered {r.output}")
+    return res, tap, row
+
+
 def serving_phase(torch, dev, zero_counts, read_counts) -> dict:
     """Phase 9: ``CascadeServer`` on full-width qwen1.5-0.5b (24 layers,
     ``attn_impl="flash"``) behind its edge variant, ``SERVE_REQUESTS``
@@ -1243,11 +1354,9 @@ def serving_phase(torch, dev, zero_counts, read_counts) -> dict:
     ``num_layers=2`` against the host."""
     from repro_torch.configs import get_config
     from repro_torch.core import cascade as CC
-    from repro_torch.core.thresholds import ThresholdState
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import meta as M
     from repro_torch.models import transformer as TR
-    from repro_torch.serving.engine import CascadeServer, Request
     t_phase = time.perf_counter()
     full = get_config("qwen1.5-0.5b")
     cloud_cfg = dataclasses.replace(full, attn_impl="flash")
@@ -1280,45 +1389,12 @@ def serving_phase(torch, dev, zero_counts, read_counts) -> dict:
         fail(f"edge confidences too close to split robustly: {conf}")
     th = dict(alpha=(conf[-4] + conf[-3]) / 2, beta=(conf[2] + conf[3]) / 2)
 
-    def serve(cfg, params, device, record=None):
-        srv = CascadeServer(edge_cfg, edge, cfg, params, slots=SERVE_SLOTS,
-                            cache_len=hi + SERVE_NEW, device=device,
-                            thresholds=ThresholdState(**th))
-        reqs = [Request(rid=i, tokens=p, max_new=SERVE_NEW)
-                for i, p in enumerate(prompts)]
-        with ServeTap(torch, TR, srv.engine) as tap:
-            zero_counts()
-            t0 = time.perf_counter()
-            res = srv.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts()
-        del srv
-        routes = [res[i].route for i in range(len(prompts))]
-        n_cloud = routes.count("cloud")
-        row = {"wall_s": wall, "prefill_s": tap.prefill_s,
-               "decode_s": tap.decode_s, "cloud_prefills": tap.prefills,
-               "prefill_tokens": tap.prefill_tokens,
-               "decode_tokens": tap.decode_tokens,
-               "prefill_tok_s": tap.prefill_tokens / tap.prefill_s,
-               "decode_tok_s": tap.decode_tokens / tap.decode_s,
-               "split": {r: routes.count(r) for r in sorted(set(routes))},
-               "flash_launches": counts["flash_attention"]}
-        print(f"{cfg.num_layers} layers, {cfg.attn_impl}, {device}: "
-              f"{json.dumps(row)}", flush=True)
-        if tap.prefills != n_cloud or not 0 < n_cloud < len(prompts):
-            fail(f"{n_cloud} cloud routes, {tap.prefills} prefills: want "
-                 f"one prefill a cloud request, and both edge and cloud")
-        want = cfg.num_layers * n_cloud if cfg.attn_impl == "flash" and \
-            device == "cuda" else 0
-        if counts["flash_attention"] != want:
-            fail(f"flash launches {counts['flash_attention']} != {want} "
-                 f"({cfg.num_layers} layers x {n_cloud} cloud prefills)")
-        for r in res.values():
-            n = SERVE_NEW if r.route == "cloud" else 1
-            if r.output is None or len(r.output) != n:
-                fail(f"request {r.rid} ({r.route}) answered {r.output}")
-        return res, tap, row
+    bench = {"edge_cfg": edge_cfg, "edge": edge, "prompts": prompts,
+             "thresholds": th, "cache_len": hi + SERVE_NEW}
+
+    def serve(cfg, params, device):
+        return serve_run(torch, bench, cfg, params, device, zero_counts,
+                         read_counts)
 
     recorded = Recorder(FA, "flash_attention")
     with recorded:
@@ -1335,17 +1411,387 @@ def serving_phase(torch, dev, zero_counts, read_counts) -> dict:
     res_h, tap_h, row_h = serve(cut, host_params, "cpu")
     cmp_host = same_serving("2 layers: card vs host", res_2, res_h, tap_2,
                             tap_h)
-    del cloud, cut_params
-    torch.cuda.empty_cache()
+    del cut_params
     phase_s = time.perf_counter() - t_phase
     print(f"serving phase {phase_s:.1f} s (parameter init {init_s:.1f} s), "
           f"{n_params} cloud parameters, prompt lengths "
           f"{lengths.tolist()}, thresholds {th}", flush=True)
-    return {"recorder": recorded, "phase_s": phase_s, "init_s": init_s,
+    return {"recorder": recorded, "bench": bench, "cloud": cloud,
+            "flash_tokens": {rid: [int(t) for t in r.output]
+                             for rid, r in res_f.items()
+                             if r.route == "cloud"},
+            "phase_s": phase_s, "init_s": init_s,
             "cloud_params": n_params, "prompt_lengths": lengths.tolist(),
             "thresholds": th, "flash_24": row_f, "chunked_24": row_c,
             "flash_2_cuda": row_2, "host_2": row_h, "decode_tick": tick,
             "flash_vs_chunked": cmp_chunked, "card_vs_host_2": cmp_host}
+
+
+class FlashClock:
+    """Wraps ``flash_attention.flash_attention`` for a run: CUDA events
+    just before and after every call (one kernel launch each), so
+    ``ms()`` is the device time of the run's launches; ``dtypes`` counts
+    the calls by q's dtype.  Enter it before a ``Recorder`` of the same
+    function, so the recorder's copies fall outside the events."""
+
+    def __init__(self, torch, FA):
+        self.torch, self.FA = torch, FA
+        self.events, self.dtypes = [], {}
+
+    def __enter__(self):
+        torch, inner = self.torch, self.FA.flash_attention
+        self.inner = inner
+
+        def timed(q, k, v, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = inner(q, k, v, **kw)
+            b.record()
+            self.events.append((a, b))
+            self.dtypes[str(q.dtype)] = self.dtypes.get(str(q.dtype), 0) + 1
+            return out
+        self.FA.flash_attention = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.FA.flash_attention = self.inner
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class MarginTap:
+    """Wraps ``transformer.prefill`` and ``decode_step`` for a run: the
+    top-2 logit margin of row 0 after every call, in call order (for
+    ``cloud_greedy_generate``, one a greedy token)."""
+
+    def __init__(self, torch, TR):
+        self.torch, self.TR, self.margins = torch, TR, []
+
+    def __enter__(self):
+        self.orig = (self.TR.prefill, self.TR.decode_step)
+
+        def tapped(fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                top = self.torch.topk(out[0][0].float(), 2).values
+                self.margins.append(float(top[0] - top[1]))
+                return out
+            return call
+        self.TR.prefill, self.TR.decode_step = map(tapped, self.orig)
+        return self
+
+    def __exit__(self, *exc):
+        self.TR.prefill, self.TR.decode_step = self.orig
+
+
+def rel_gap(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def dense_family_phase(torch, dev, serving, zero_counts, read_counts
+                       ) -> dict:
+    """Phase 10: the rest of the dense serving family on the card.
+
+    Speculative decoding with full-width qwen1.5-0.5b (24 layers, flash,
+    its layer matrices scaled by ``SPEC_GAIN``) as the cloud and its edge
+    variant, at the cloud's vocabulary, as the draft, on ``SPEC_LENGTHS``
+    prompts: tokens equal to ``cloud_greedy_generate``'s on the card under
+    the near-tie rule; the cloud drafting for itself accepts everything;
+    flash launches 24 x the cloud prefills (twice that for the
+    self-draft); at 2 layers the card's tokens equal the host's.  The int8 KV cache through ``CascadeServer``
+    on the serving phase's prompts, one 1,024-token prefill and decode
+    step within ``INT8_KV_RTOL`` of the f32 cache's, the card against the
+    host at 2 layers.  int8 weights (``quantize_tree`` of the bf16 model):
+    prefill logits within ``INT8_WEIGHT_RTOL`` of the f32 model's, 24 bf16
+    flash launches, ``DENSE_NEW`` decode steps through ``DecodeEngine``.
+    chatglm3-6b and command-r-35b at full width, cut to ``DENSE_LAYERS``
+    layers: a ``DENSE_PROMPT``-token prefill and ``DENSE_NEW`` decode steps
+    through ``DecodeEngine``, flash against chunked on the card."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import speculative as SP
+    from repro_torch.distributed import quantize as QZ
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import meta as M
+    from repro_torch.models import transformer as TR
+    from repro_torch.serving.engine import DecodeEngine, Request
+    t_phase = time.perf_counter()
+    full = get_config("qwen1.5-0.5b")
+    cloud_cfg = dataclasses.replace(full, attn_impl="flash")
+    cloud, bench = serving["cloud"], serving["bench"]
+    out = {"draw_s": {}}
+
+    def on_host(tree):
+        return M.tree_map(lambda t: t.cpu(), tree)
+
+    # --- speculative decoding ------------------------------------------------
+    # the draft reads the cloud's tokens, so it keeps the cloud's
+    # vocabulary (edge_variant() alone cuts it to 512)
+    draft_cfg = dataclasses.replace(full.edge_variant(),
+                                    vocab_size=full.vocab_size)
+    t0 = time.perf_counter()
+    draft = M.tree_map(lambda t: t.to(dev), M.init_params(
+        draft_cfg, torch.Generator().manual_seed(1)))
+    torch.cuda.synchronize()
+    out["draw_s"]["draft"] = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, full.vocab_size, (1, n), generator=g)
+               for n in SPEC_LENGTHS]
+
+    def greedy_runs(cfg, params, device):
+        toks, margins = [], []
+        for p in prompts:
+            with MarginTap(torch, TR) as tap:
+                toks.append(SP.cloud_greedy_generate(
+                    cfg, params, p.to(device), SPEC_STEPS).cpu())
+            margins.append(tap.margins)
+        return toks, margins
+
+    spec_rec = Recorder(FA, "flash_attention")
+
+    def spec_runs(what, edge_cfg, edge, cfg, params, device):
+        toks, stats = [], []
+        on_card = torch.device(device).type == "cuda"
+        rec = spec_rec if on_card else contextlib.nullcontext()
+        with FlashClock(torch, FA) as clock, rec:
+            zero_counts()
+            t0 = time.perf_counter()
+            for p in prompts:
+                o, st = SP.speculative_generate(
+                    edge_cfg, edge, cfg, params, p.to(device),
+                    steps=SPEC_STEPS, k=SPEC_K)
+                toks.append(o.cpu())
+                stats.append(st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()["flash_attention"]
+        rounds = sum(st.cloud_steps for st in stats)
+        per_prefill = cfg.num_layers * (1 + (edge_cfg.attn_impl == "flash"))
+        want = per_prefill * (len(prompts) + rounds) if on_card else 0
+        row = {"wall_s": wall, "rounds": rounds,
+               "proposed": sum(st.proposed for st in stats),
+               "accepted": sum(st.accepted for st in stats),
+               "acceptance": [st.acceptance_rate for st in stats],
+               "tokens_per_cloud_step": [st.tokens_per_cloud_step
+                                         for st in stats],
+               "flash_launches": launches,
+               "flash_device_ms": clock.ms() if on_card else None}
+        print(f"speculative, {what}, {cfg.num_layers} layers, {device}: "
+              f"{json.dumps(row)}", flush=True)
+        if launches != want:
+            fail(f"speculative ({what}): flash launches {launches} != {want}"
+                 f" ({per_prefill} a prefill x {len(prompts)} + {rounds} "
+                 f"cloud prefills)")
+        return toks, stats, row
+
+    spec_cloud = {**cloud, "layers": {
+        block: {name: t * SPEC_GAIN if name in GAINED else t
+                for name, t in leaves.items()}
+        for block, leaves in cloud["layers"].items()}}
+    greedy, margins = greedy_runs(cloud_cfg, spec_cloud, dev)
+    out["greedy_distinct_tokens"] = [len(set(t.flatten().tolist()))
+                                     for t in greedy]
+    spec, _, out["speculative_24"] = spec_runs(
+        "edge draft", draft_cfg, draft, cloud_cfg, spec_cloud, dev)
+    flips = [f for i in range(len(prompts)) for f in same_tokens(
+        f"speculative prompt {i}: card vs cloud-greedy", spec[i], greedy[i],
+        margins[i])]
+    self_spec, self_stats, out["self_draft_24"] = spec_runs(
+        "self-draft", cloud_cfg, spec_cloud, cloud_cfg, spec_cloud, dev)
+    flips += [f for i in range(len(prompts)) for f in same_tokens(
+        f"self-draft prompt {i}: card vs cloud-greedy", self_spec[i],
+        greedy[i], margins[i])]
+    if any(st.acceptance_rate != 1.0 or not st.tokens_per_cloud_step > 1.5
+           for st in self_stats):
+        fail(f"self-draft: acceptance {out['self_draft_24']['acceptance']}, "
+             f"tokens per cloud step "
+             f"{out['self_draft_24']['tokens_per_cloud_step']} (want 1.0 "
+             f"and > 1.5)")
+    cut_cfg = dataclasses.replace(cloud_cfg, num_layers=2)
+    cut = {**spec_cloud, "layers": M.tree_map(lambda t: t[:2],
+                                              spec_cloud["layers"])}
+    cut_spec, cut_stats, out["speculative_2_cuda"] = spec_runs(
+        "edge draft", draft_cfg, draft, cut_cfg, cut, dev)
+    host_spec, host_stats, out["speculative_2_host"] = spec_runs(
+        "edge draft", draft_cfg, on_host(draft), cut_cfg, on_host(cut),
+        "cpu")
+    if cut_stats != host_stats or any(
+            not torch.equal(a, b) for a, b in zip(cut_spec, host_spec)):
+        _, host_margins = greedy_runs(cut_cfg, on_host(cut), "cpu")
+        for i in range(len(prompts)):
+            flips += same_tokens(f"speculative 2 layers prompt {i}: card vs "
+                                 f"host", cut_spec[i], host_spec[i],
+                                 host_margins[i])
+    out["speculative_flips"] = flips
+    out["speculative_recorder"] = spec_rec
+    print(f"speculative: tokens equal to cloud-greedy on the card and to the "
+          f"host's at 2 layers ({len(flips)} near-tie flips), self-draft "
+          f"acceptance 1.0", flush=True)
+    del draft, cut, spec_cloud
+
+    # --- int8 KV cache -------------------------------------------------------
+    kv_cfg = dataclasses.replace(cloud_cfg, kv_cache_dtype="int8")
+    res8, _, out["int8_kv_24"] = serve_run(torch, bench, kv_cfg, cloud,
+                                           dev, zero_counts, read_counts)
+    f32_tokens = serving["flash_tokens"]
+    out["int8_kv_24"]["same_tokens_as_f32_cache"] = sum(
+        [int(t) for t in r.output] == f32_tokens.get(rid)
+        for rid, r in res8.items() if r.route == "cloud")
+    long_prompt = torch.as_tensor(bench["prompts"][0]).long()[None].to(dev)
+    logits = {}
+    for name, cfg in (("f32", cloud_cfg), ("int8", kv_cfg)):
+        _, cache = TR.prefill(cfg, cloud, long_prompt[:, :-1],
+                              cache_len=long_prompt.shape[1])
+        logits[name] = TR.decode_step(cfg, cloud, cache,
+                                      long_prompt[:, -1])[0]
+    del cache
+    kv_gap = rel_gap(logits["int8"], logits["f32"])
+    print(f"int8 KV cache, one {long_prompt.shape[1] - 1}-token prefill and a "
+          f"decode step: logits {kv_gap:.4g} of the largest from the f32 "
+          f"cache's (bound {INT8_KV_RTOL})", flush=True)
+    if not kv_gap < INT8_KV_RTOL:
+        fail(f"int8 KV decode logits {kv_gap} from the f32 cache's, not "
+             f"under {INT8_KV_RTOL}")
+    cut8 = dataclasses.replace(kv_cfg, num_layers=2)
+    cut = {**cloud, "layers": M.tree_map(lambda t: t[:2], cloud["layers"])}
+    res_c, tap_c, out["int8_kv_2_cuda"] = serve_run(
+        torch, bench, cut8, cut, dev, zero_counts, read_counts)
+    res_h, tap_h, out["int8_kv_2_host"] = serve_run(
+        torch, bench, cut8, on_host(cut), "cpu", zero_counts, read_counts)
+    out["int8_kv_card_vs_host_2"] = same_serving(
+        "int8 KV, 2 layers: card vs host", res_c, res_h, tap_c, tap_h)
+    out["int8_kv_decode_rel_gap"] = kv_gap
+    del cut
+
+    # --- int8 weights --------------------------------------------------------
+    t0 = time.perf_counter()
+    q8 = QZ.quantize_tree(M.tree_map(lambda t: t.to(torch.bfloat16), cloud),
+                          cloud_cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for _, t in M.leaves(tree))
+    w8_rec = Recorder(FA, "flash_attention")
+    with FlashClock(torch, FA) as clock8, w8_rec:
+        zero_counts()
+        l8 = TR.prefill(cloud_cfg, q8, long_prompt)[0]
+        launches8 = read_counts()["flash_attention"]
+    l32 = TR.prefill(cloud_cfg, cloud, long_prompt)[0]
+    w_gap = rel_gap(l8, l32)
+
+    def engine_tokens(params):
+        """One request, the long prompt, through ``DecodeEngine``: its
+        tokens, decode steps, prefill and decode seconds."""
+        eng = DecodeEngine(cloud_cfg, params, slots=1,
+                           cache_len=long_prompt.shape[1] + DENSE_NEW,
+                           device=dev)
+        t0 = time.perf_counter()
+        eng.admit(Request(rid=0, tokens=bench["prompts"][0],
+                          max_new=DENSE_NEW + 1))
+        t1 = time.perf_counter()
+        done = []
+        while eng.active:
+            done += eng.step()
+        return (done[0][1] if done else [], eng.ticks, t1 - t0,
+                time.perf_counter() - t1)
+
+    w8_tokens, ticks, prefill_s, decode_s = engine_tokens(q8)
+    f32_engine_tokens = engine_tokens(cloud)[0]
+    out["int8_weights_24"] = {
+        "param_bytes": nbytes(q8), "f32_param_bytes": nbytes(cloud),
+        "quantize_s": quant_s, "prefill_rel_gap": w_gap,
+        "flash_launches": launches8, "flash_dtypes": clock8.dtypes,
+        "flash_bf16_device_ms": clock8.ms(), "prefill_s": prefill_s,
+        "decode_steps": ticks, "decode_s": decode_s,
+        "tokens_equal_to_f32_model": sum(
+            a == b for a, b in zip(w8_tokens, f32_engine_tokens))}
+    print(f"int8 weights: {json.dumps(out['int8_weights_24'])}", flush=True)
+    if not w_gap < INT8_WEIGHT_RTOL:
+        fail(f"int8-weight prefill logits {w_gap} from the f32 model's, not "
+             f"under {INT8_WEIGHT_RTOL}")
+    if launches8 != cloud_cfg.num_layers * (dev.type == "cuda") or \
+            clock8.dtypes != {"torch.bfloat16": cloud_cfg.num_layers}:
+        fail(f"int8-weight prefill: {launches8} flash launches, dtypes "
+             f"{clock8.dtypes} (want {cloud_cfg.num_layers} in bf16)")
+    if ticks != DENSE_NEW or len(w8_tokens) != DENSE_NEW + 1:
+        fail(f"int8-weight engine: {ticks} decode steps, "
+             f"{len(w8_tokens)} tokens")
+    out["int8_weights_recorder"] = w8_rec
+    del q8, l8, l32
+
+    # --- chatglm3-6b and command-r-35b ---------------------------------------
+    dense_recs = {}
+    for arch, seed, widths in (
+            ("chatglm3-6b", 11, (4096, 32, 2, 128, 13696, 65024)),
+            ("command-r-35b", 12, (8192, 64, 8, 128, 22528, 256000))):
+        cfg = dataclasses.replace(get_config(arch), num_layers=DENSE_LAYERS)
+        if (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                cfg.d_ff, cfg.vocab_size) != widths:
+            fail(f"{arch} is not at full width: {cfg}")
+        t0 = time.perf_counter()
+        host = M.init_params(cfg, torch.Generator().manual_seed(seed))
+        out["draw_s"][arch] = time.perf_counter() - t0
+        params = M.tree_map(lambda t: t.to(dev), host)
+        del host
+        n_params = sum(t.numel() for _, t in M.leaves(params))
+        prompt = torch.randint(0, cfg.vocab_size, (DENSE_PROMPT,),
+                               generator=torch.Generator().manual_seed(seed)
+                               ).to(torch.int32).numpy()
+        runs, rows = {}, {}
+        for impl in ("flash", "chunked"):
+            c = dataclasses.replace(cfg, attn_impl=impl)
+            eng = DecodeEngine(c, params, slots=1,
+                               cache_len=DENSE_PROMPT + DENSE_NEW, device=dev)
+            rec = Recorder(FA, "flash_attention")
+            with FlashClock(torch, FA) as clock, rec, \
+                    ServeTap(torch, TR, eng) as tap:
+                zero_counts()
+                eng.admit(Request(rid=0, tokens=prompt,
+                                  max_new=DENSE_NEW + 1))
+                done = []
+                while eng.active:
+                    done += eng.step()
+                torch.cuda.synchronize()
+                launches = read_counts()["flash_attention"]
+            res = {0: Request(rid=0, tokens=prompt, route="cloud",
+                              output=np.asarray(done[0][1]))}
+            runs[impl] = (res, tap)
+            rows[impl] = {"prefill_s": tap.prefill_s,
+                          "decode_tok_s": tap.decode_tokens / tap.decode_s,
+                          "flash_launches": launches,
+                          "flash_device_ms": clock.ms()}
+            if impl == "flash":
+                dense_recs[arch] = rec
+            want = DENSE_LAYERS * tap.prefills \
+                if impl == "flash" and dev.type == "cuda" else 0
+            if launches != want or tap.prefills != 1 or \
+                    len(done[0][1]) != DENSE_NEW + 1:
+                fail(f"{arch} {impl}: {launches} flash launches for "
+                     f"{tap.prefills} prefills (want {want}), "
+                     f"{len(done[0][1])} tokens")
+            del eng
+        cmp = same_serving(f"{arch}, {DENSE_LAYERS} layers: flash vs chunked "
+                           f"on the card", runs["flash"][0],
+                           runs["chunked"][0], runs["flash"][1],
+                           runs["chunked"][1])
+        out[arch] = {"params": n_params, "draw_s": out["draw_s"][arch],
+                     **{f"{k}_{impl}": v for impl, r in rows.items()
+                        for k, v in r.items()}, "flash_vs_chunked": cmp}
+        print(f"{arch}, {DENSE_LAYERS} layers at full width: "
+              f"{json.dumps(out[arch])}", flush=True)
+        del params, runs
+        torch.cuda.empty_cache()
+    out["dense_recorders"] = dense_recs
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dense family phase {out['phase_s']:.1f} s (draws "
+          f"{json.dumps(out['draw_s'])})", flush=True)
+    return out
 
 
 def deep_logit_gap(torch, dev) -> dict:
@@ -2001,6 +2447,15 @@ def main() -> None:
     serving = serving_phase(torch, dev, zero_counts, read_counts)
     deep = deep_logit_gap(torch, dev)
 
+    phase("dense family: speculative decoding, the int8 KV cache and int8 "
+          "weights on full-width qwen1.5-0.5b; chatglm3-6b and command-r-35b "
+          f"at full width, {DENSE_LAYERS} layers")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: they would move the logits")
+    dense = dense_family_phase(torch, dev, serving, zero_counts, read_counts)
+    del serving["cloud"], serving["bench"]
+    torch.cuda.empty_cache()
+
     phase("training path: the shared workload (8 cameras, 3 edges, 240 s, "
           "80 steps) trained and scored on the card, Table II, Fig. 5")
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2216,12 +2671,90 @@ def main() -> None:
               f"{tuple(r['shape'])} kernel {r['ms']:.4f} ms, SDPA "
               f"{r['sdpa_ms']:.4f} ms, bf16 bound {r['bound_ms']:.4f} ms"
               for r in fl_bf16), flush=True)
+    # the dense-family phase's launches: every speculative prefill shape
+    # (the prompts grow by the accepted tokens each round, mostly off the
+    # tile) re-checked and timed beside SDPA, summed over its launches;
+    # the int8-weight bf16 prefill and the chatglm3-6b and command-r-35b
+    # prefills (GQA 16:1 and 8:1 at hd 128) in f32 and in bf16
+    sp_rec = dense.pop("speculative_recorder")
+    sp_rows = []
+    for key, (q, k, v, _) in sorted(sp_rec.inputs.items(),
+                                    key=lambda kv: kv[0][2]):
+        err = flash_diff(torch, FA, q, k, v, True)
+        ms = device_ms(torch, lambda: FA.flash_attention(q, k, v), 20,
+                       SHORT_HOLD_CYCLES)
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20, SHORT_HOLD_CYCLES)
+        sp_rows.append({"S": q.shape[2], "launches": sp_rec.counts[key],
+                        "ms": ms, "sdpa_ms": lib, "max_abs_err": err,
+                        "bound_ms": flash_bound_ms(geometry(q, k), 4)["ms"]})
+    sp_run = {key: sum(r["launches"] * r[key] for r in sp_rows)
+              for key in ("ms", "sdpa_ms", "bound_ms")}
+    sp_run.update(launches=sum(r["launches"] for r in sp_rows),
+                  shapes=len(sp_rows), geometry=[1, 16, 16, "S", "S", 64],
+                  max_abs_err=max(r["max_abs_err"] for r in sp_rows))
+    sp_launches = sum(dense[k]["flash_launches"] for k in (
+        "speculative_24", "self_draft_24", "speculative_2_cuda"))
+    if sp_run["launches"] != sp_launches:
+        fail(f"the recorder saw {sp_run['launches']} speculative flash "
+             f"calls, the counter {sp_launches}")
+    print(f"flash at the speculative prefill lengths (S, launches, kernel "
+          f"ms, SDPA ms): " + "; ".join(
+              f"{r['S']} {r['launches']} {r['ms']:.4f} {r['sdpa_ms']:.4f}"
+              for r in sp_rows), flush=True)
+    print(f"flash device ms per speculative runs ({sp_run['launches']} "
+          f"launches over {len(sp_rows)} lengths, max err "
+          f"{sp_run['max_abs_err']:.3g}): kernel {sp_run['ms']:.4f}, SDPA "
+          f"{sp_run['sdpa_ms']:.4f}, bound {sp_run['bound_ms']:.4f}",
+          flush=True)
+    dense_recs = dense.pop("dense_recorders")
+    dense_shapes = []
+    for name, rec, dtypes in (
+            ("qwen1.5-0.5b int8 weights", dense.pop("int8_weights_recorder"),
+             (torch.bfloat16,)),
+            ("chatglm3-6b", dense_recs["chatglm3-6b"],
+             (torch.float32, torch.bfloat16)),
+            ("command-r-35b", dense_recs["command-r-35b"],
+             (torch.float32, torch.bfloat16))):
+        (key, (q, k, v, _)), = rec.inputs.items()
+        for dt in dtypes:
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            err = flash_diff(torch, FA, qd, kd, vd, True)
+            ms, lib = flash_times(qd, kd, vd)
+            bound = flash_bound_ms(geometry(qd, kd), qd.element_size())
+            dense_shapes.append({
+                "model": name, "dtype": str(dt)[6:],
+                "shape": list(geometry(qd, kd)),
+                "launches": rec.counts[key] if dt == q.dtype else 0,
+                "ms": ms, "sdpa_ms": lib, "bound_ms": bound["ms"],
+                "bound_by": bound["by"], "max_abs_err": err})
+            del qd, kd, vd
+    print("flash at the dense family's prefills: " + "; ".join(
+        f"{r['model']} {r['dtype']} {tuple(r['shape'])} kernel "
+        f"{r['ms']:.4f} ms, SDPA {r['sdpa_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms, err {r['max_abs_err']:.3g}"
+        for r in dense_shapes), flush=True)
     fl_paths = {"serving_24_layers_flash":
                 serving["flash_24"]["flash_launches"],
                 "serving_24_layers_chunked":
                 serving["chunked_24"]["flash_launches"],
                 "serving_2_layers_flash_cuda":
-                serving["flash_2_cuda"]["flash_launches"]}
+                serving["flash_2_cuda"]["flash_launches"],
+                "speculative_24_layers":
+                dense["speculative_24"]["flash_launches"],
+                "speculative_self_draft_24_layers":
+                dense["self_draft_24"]["flash_launches"],
+                "speculative_2_layers_cuda":
+                dense["speculative_2_cuda"]["flash_launches"],
+                "int8_kv_24_layers": dense["int8_kv_24"]["flash_launches"],
+                "int8_kv_2_layers_cuda":
+                dense["int8_kv_2_cuda"]["flash_launches"],
+                "int8_weights_24_layers":
+                dense["int8_weights_24"]["flash_launches"],
+                "chatglm3_6b_2_layers":
+                dense["chatglm3-6b"]["flash_launches_flash"],
+                "command_r_35b_2_layers":
+                dense["command-r-35b"]["flash_launches_flash"]}
     ss_paths = {"metropolis": metro_counts["superstep"],
                 "metropolis_smoke": smoke_counts["superstep"],
                 "metropolis_smoke_superstep1": k1_counts["superstep"]}
@@ -2237,7 +2770,7 @@ def main() -> None:
     kernels = [
         {"name": "triage_fleet", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/triage.cu",
-         "replaces": "src/repro/kernels/triage.py:111",
+         "replaces": "src/repro/kernels/triage.py:118",
          "launches": city_launches[0] + drift_launches[0]
          + pixel_counts["triage"] + sum(tri_train_paths.values()),
          "launches_by_path": {"city_scale": city_launches[0],
@@ -2255,7 +2788,7 @@ def main() -> None:
                      "over_floor_ms": one_ms - floor_ms}},
         {"name": "calibrate_fleet", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/calibrate.cu",
-         "replaces": "src/repro/kernels/calibrate.py:102",
+         "replaces": "src/repro/kernels/calibrate.py:111",
          "launches": city_launches[1] + drift_launches[1],
          "launches_by_path": {"city_scale": city_launches[1],
                               "drifting_city": drift_launches[1],
@@ -2277,7 +2810,7 @@ def main() -> None:
          "slab_shapes": ss_shapes["shapes"]},
         {"name": "associate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/associate.cu",
-         "replaces": "src/repro/kernels/similarity.py:96",
+         "replaces": "src/repro/kernels/similarity.py:104",
          "launches": sum(a_paths.values()), "launches_by_path": a_paths,
          "shape": [am, ak, ad], "checked_inputs": len(assoc_calls),
          "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
@@ -2286,7 +2819,7 @@ def main() -> None:
          "track_runs": a_shapes["run"], "track_shapes": a_shapes["shapes"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:74",
+         "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": sum(fl_paths.values()), "launches_by_path": fl_paths,
          "shape": list(fl_shape), "checked_inputs": len(fl_rec.inputs),
          "max_abs_err": fl_err, "ms": fl_ms, "plain_ms": fl_plain,
@@ -2297,7 +2830,8 @@ def main() -> None:
                     "is_causal=True, enable_gqa=True)",
          "library_max_abs_err": fl_lib_err, "serving_run": fl_run,
          "serving_shapes": fl_shapes, "qwen3_8b": fl_qwen3,
-         "qwen3_8b_prefill_logits": deep, "bf16": fl_bf16},
+         "qwen3_8b_prefill_logits": deep, "bf16": fl_bf16,
+         "speculative_runs": sp_run, "dense_family_shapes": dense_shapes},
     ]
     print(json.dumps({"paths": {
         "city_scale": {"cuda_s": city_cuda_s, "cpu_s": city_cpu_s,
@@ -2335,6 +2869,7 @@ def main() -> None:
                              "superstep1_bit_identical": True},
         **track,
         "serving": {k: v for k, v in serving.items() if k != "recorder"},
+        "dense_family": dense,
         "training": training},
         "total_s": time.perf_counter() - t_all}))
     for row in kernels:

@@ -1,24 +1,85 @@
-"""WAN wire format for cloud -> edge model shipments (numpy only).
+"""int8 weights for serving, and the WAN wire format for cloud -> edge
+model shipments.
 
-Per-query CQ weights and recalibrated Platt heads ship int8-quantized over
-the query pipeline's WAN downlink (``system/transport.py``) instead of
-full-width fp32.  The wire format is affine (scale + zero-point per
-channel): a Platt head's (a, b) ranges are nowhere near symmetric around
-zero, and wasting half the int8 range on a one-sided payload doubles the
-round-trip error for free.
+Serving: symmetric int8 with per-output-channel scales.  Quantization is
+meta-aware (``repro_torch.models.meta``): only weight leaves (init
+normal, ndim >= 2) are quantized; norm scales and biases stay in float.
+A quantized leaf is a ``{"q": int8, "s": f32 scales}`` dict.
+Layer-stacked leaves keep their leading ``stack`` axis in the scale,
+shape (L, out), so indexing ``params["layers"]`` by layer slices both
+halves to an unstacked leaf.  ``transformer.maybe_dequant`` dequantizes
+one layer's slice at a time inside the layer loop, so only one layer's
+weights are ever resident in bf16.  ``abstract_quantized`` and
+``quantized_shardings`` (shape-only trees and mesh shardings for the
+dry-run launcher) come with the multi-device slice of the port.
+
+Wire: per-query CQ weights and recalibrated Platt heads ship
+int8-quantized over the query pipeline's WAN downlink
+(``system/transport.py``) instead of full-width fp32.  The wire format is
+affine (scale + zero-point per channel): a Platt head's (a, b) ranges are
+nowhere near symmetric around zero, and wasting half the int8 range on a
+one-sided payload doubles the round-trip error for free.
 
 Byte accounting is explicit and exact so ``Transport`` can charge the
 *real* shipped size: 1 byte per value, 8 bytes (fp32 scale + fp32 zero)
 per ``WIRE_CHANNEL``-value channel, plus a fixed framing header.
-
-The reference package's module also quantizes a whole model tree to int8
-for serving; that half arrives with the LLM/serving slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
+import torch
+
+from repro_torch.models import meta as M
+from repro_torch.models.config import ModelConfig
+
+
+def _is_quant(leaf: Any) -> bool:
+    return isinstance(leaf, dict) and set(leaf) == {"q", "s"}
+
+
+def quantize_leaf(x: torch.Tensor, stacked: bool):
+    """x (..., out) -> {"q": int8 like x, "s": (out,) or, ``stacked``,
+    (L, out) f32}: one scale over every axis but the last (and, stacked,
+    the leading layer axis), rounding half to even."""
+    xf = x.to(torch.float32)
+    axes = tuple(range(1 if stacked else 0, x.ndim - 1))
+    amax = torch.amax(torch.abs(xf), dim=axes) if axes else torch.abs(xf)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    bshape = ((x.shape[0],) if stacked else ()) + (1,) * len(axes) + \
+        (x.shape[-1],)
+    q = torch.clamp(torch.round(xf / scale.reshape(bshape)), -127, 127)
+    return {"q": q.to(torch.int8), "s": scale}
+
+
+def dequantize_leaf(leaf, dtype: torch.dtype = torch.bfloat16
+                    ) -> torch.Tensor:
+    q, s = leaf["q"], leaf["s"]
+    if s.ndim == 2 and q.ndim >= 3 and s.shape[0] == q.shape[0]:
+        s = s.reshape((q.shape[0],) + (1,) * (q.ndim - 2) + (q.shape[-1],))
+    return (q.to(torch.float32) * s).to(dtype)
+
+
+def _quantizable(pm: M.ParamMeta) -> bool:
+    return pm.init in ("normal", "scaled") and len(pm.shape) >= 2
+
+
+def quantize_tree(params: M.Tree, cfg: ModelConfig) -> M.Tree:
+    """Quantize the weight leaves of ``params`` per ``cfg``'s metadata."""
+    return M.tree_map(
+        lambda pm, leaf: quantize_leaf(leaf, stacked=pm.axes[0] == M.STACK)
+        if _quantizable(pm) else leaf, M.model_meta(cfg), params)
+
+
+def dequant_tree(params: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
+    """Inverse of ``quantize_tree``, structure kept; float leaves pass."""
+    if _is_quant(params):
+        return dequantize_leaf(params, dtype)
+    if isinstance(params, dict):
+        return {k: dequant_tree(v, dtype) for k, v in params.items()}
+    return params
 
 #: framing per shipped tensor: dtype tag, ndim/shape, channel count
 WIRE_HEADER_NBYTES = 16

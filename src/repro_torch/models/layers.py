@@ -1,20 +1,23 @@
-"""Transformer layers of the dense models: RMSNorm, RoPE, QKV projection
-(with optional bias and per-head qk RMSNorm), GQA attention, SiLU-gated
-MLP — the dense subset of the reference's ``models/layers.py``, in
-PyTorch.
+"""Transformer layers of the dense models: RMSNorm and LayerNorm, RoPE
+('neox' and chatglm's '2d'), QKV projection (with optional bias and
+per-head qk RMSNorm), GQA attention with an optional logit softcap, the
+int8 KV-cache codec, SiLU-gated MLP — the dense subset of the reference's
+``models/layers.py``, in PyTorch.
 
 All functions are pure and shape-polymorphic; parameters are the nested
 dicts of ``models/meta.py``.  The projections are plain ``torch.einsum``
-(the reference leaves them to XLA, outside any Pallas kernel).  Attention
-is the reference's chunked path, except where the reference reaches its
-flash-attention kernel (``attn_impl == "flash"``, a causal multi-token
-pass over its own fresh K/V: every prefill); there it launches the port's
-kernel through ``kernels.ops.flash_attention``.
+(the reference leaves them to XLA, outside any Pallas kernel); where
+their operands differ in dtype (bf16 activations against an f32 bias or
+cache), they promote as ``jnp`` does.  Attention is the reference's
+chunked path, except where the reference reaches its flash-attention
+kernel (``attn_impl == "flash"``, a causal multi-token pass over its own
+fresh K/V: every prefill); there it launches the port's kernel through
+``kernels.ops.flash_attention``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,11 +28,26 @@ from repro_torch.models.config import ModelConfig
 NEG_INF = -1e30
 
 
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` over operands promoted to one dtype, as ``jnp``
+    promotes mixed operands."""
+    dt = ops[0].dtype
+    for t in ops[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return torch.einsum(eq, *(t.to(dt) for t in ops))
+
+
 def norm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm, computed in f32."""
+    """RMSNorm or LayerNorm (``cfg.norm_type``), computed in f32."""
     xf = x.to(torch.float32)
-    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
+    if cfg.norm_type == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    else:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
 
 
@@ -42,8 +60,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def rope_freqs(cfg: ModelConfig, positions: torch.Tensor):
-    """cos/sin tables, shape (..., head_dim/2).  positions: int (...,)."""
-    rot = cfg.head_dim
+    """cos/sin tables, shape (..., rot/2), where rot is the rotated width:
+    head_dim under 'neox', half of it under '2d'.  positions: int (...,)."""
+    rot = cfg.head_dim if cfg.rope_style == "neox" else cfg.head_dim // 2
     inv = 1.0 / (cfg.rope_theta ** (
         torch.arange(0, rot, 2, dtype=torch.float32,
                      device=positions.device) / rot))
@@ -53,26 +72,37 @@ def rope_freqs(cfg: ModelConfig, positions: torch.Tensor):
 
 def apply_rope(cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """'neox' RoPE: x (B, S, H, hd) rotated over the full head_dim in the
-    half-split layout; cos/sin (B?, S, hd/2) broadcast over heads."""
+    """x (B, S, H, hd); cos/sin (B?, S, rot/2) broadcast over heads.
+
+    'neox' rotates the full head_dim in the half-split layout; '2d'
+    (chatglm) rotates the first half of head_dim as interleaved pairs and
+    passes the second half through."""
     if cfg.rope_style == "none":
         return x
     cos = cos[..., None, :]
     sin = sin[..., None, :]
-    half = x.shape[-1] // 2
-    x1, x2 = x[..., :half], x[..., half:]
+    if cfg.rope_style == "neox":
+        half = x.shape[-1] // 2
+        x1, x2 = x[..., :half], x[..., half:]
+        r1 = x1 * cos - x2 * sin
+        r2 = x2 * cos + x1 * sin
+        return torch.cat([r1, r2], dim=-1).to(x.dtype)
+    rot = x.shape[-1] // 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
     r1 = x1 * cos - x2 * sin
     r2 = x2 * cos + x1 * sin
-    return torch.cat([r1, r2], dim=-1).to(x.dtype)
+    inter = torch.stack([r1, r2], dim=-1).reshape(r1.shape[:-1] + (rot,))
+    return torch.cat([inter, xp.to(inter.dtype)], dim=-1).to(x.dtype)
 
 
 def qkv_project(cfg: ModelConfig, p, x: torch.Tensor):
     """x (B, S, D) -> q (B, S, H, hd), k, v (B, S, KV, hd); plus the QKV
     biases under ``attn_bias`` and a per-head RMSNorm of q and k under
     ``qk_norm``."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", x, p["wk"])
+    v = einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.attn_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -83,11 +113,19 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor):
     return q, k, v
 
 
+def _scores_to_probs(scores: torch.Tensor, softcap: float) -> torch.Tensor:
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               chunk: int = 512) -> torch.Tensor:
-    """GQA attention, f32 scores and softmax.
+    """GQA attention, f32 softmax.
 
     q (B, Sq, H, hd), k/v (B, Sk, KV, hd); q_pos (Sq,) or (B, Sq) and
     k_pos (Sk,) or (B, Sk) absolute positions (negative k_pos: an unwritten
@@ -99,9 +137,14 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     Under ``cfg.attn_impl == "flash"``, a causal multi-token pass with no
     window over its own K/V (Sq == Sk, positions 0..S-1: a prefill) is one
     launch of the flash-attention kernel, exactly the reference's
-    condition.  Otherwise queries run in chunks of at most ``chunk`` (the
-    largest divisor of Sq not above it, or one block where that is 1), so
-    the score matrix is rarely Sq x Sk at once."""
+    condition; like the reference's, that branch does not apply
+    ``cfg.logit_softcap``.  Otherwise queries run in chunks of at most
+    ``chunk`` (the largest divisor of Sq not above it, or one block where
+    that is 1), so the score matrix is rarely Sq x Sk at once.  The
+    chunked products accumulate in f32 for a multi-token pass; a decode
+    step (Sq == 1) rounds the scores and the output to q's dtype, as the
+    reference's products in q's dtype do, and caps the scores after
+    masking, as the reference does."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -116,24 +159,23 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         q_pos = q_pos[None].expand(B, Sq)
     if k_pos.ndim == 1:
         k_pos = k_pos[None].expand(B, Sk)
+    acc = torch.float32 if Sq > 1 else q.dtype
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
 
     def block(qc: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
         c = qc.shape[1]
         qr = qc.reshape(B, c, KV, G, hd)
-        s = torch.einsum("bckgh,bskh->bckgs", qr.to(torch.float32),
-                         k.to(torch.float32)) * scale
+        s = torch.einsum("bckgh,bskh->bckgs", qr.to(torch.float32), kf)
+        s = s.to(acc).to(torch.float32) * scale
         mask = k_pos[:, None, :] >= 0                      # (B, 1, Sk)
         if causal:
             mask = mask & (k_pos[:, None, :] <= qp[:, :, None])
         if window is not None:
             mask = mask & (k_pos[:, None, :] > qp[:, :, None] - window)
         s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
-        m = torch.amax(s, dim=-1, keepdim=True)
-        e = torch.exp(s - m)
-        pr = (e / torch.sum(e, dim=-1, keepdim=True)).to(q.dtype)
-        o = torch.einsum("bckgs,bskh->bckgh", pr.to(torch.float32),
-                         v.to(torch.float32))
-        return o.reshape(B, c, H, hd).to(q.dtype)
+        pr = _scores_to_probs(s, cfg.logit_softcap).to(q.dtype)
+        o = torch.einsum("bckgs,bskh->bckgh", pr.to(torch.float32), vf)
+        return o.to(acc).reshape(B, c, H, hd).to(q.dtype)
 
     if Sq <= chunk:
         return block(q, q_pos)
@@ -146,11 +188,27 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def attn_out(p, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, KV, hd) -> (int8 values, (B, S, KV) f32 scales): symmetric
+    per-token, per-KV-head quantization, rounding half to even."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None].to(torch.float32)
+            ).to(dtype)
 
 
 def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """SiLU-gated MLP: (silu(x wg) * (x wi)) wo."""
-    h = torch.einsum("bsd,df->bsf", x, p["wi"])
-    g = torch.einsum("bsd,df->bsf", x, p["wg"])
-    return torch.einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"])
+    h = einsum("bsd,df->bsf", x, p["wi"])
+    g = einsum("bsd,df->bsf", x, p["wg"])
+    return einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"])

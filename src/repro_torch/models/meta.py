@@ -7,10 +7,12 @@ parameters carry a leading ``stack`` axis of size ``num_layers``, so the
 port's parameter tree has the reference's structure and shapes leaf for
 leaf (``bridge.params_from_numpy`` relies on that).
 
-The port carries the dense family (attention with optional QKV bias and
-per-head qk RMSNorm, SiLU-gated MLP, RMSNorm): the CQ classifier and the
-serving path's qwen1.5 / qwen3 models.  ``check_dense`` refuses any other
-config.  The reference draws its init from a JAX PRNG key, which torch
+The port carries the dense family: attention with optional QKV bias and
+per-head qk RMSNorm, 'neox' or chatglm's '2d' RoPE, a SiLU-gated MLP,
+RMSNorm or LayerNorm (with its bias leaf), sequential or command-r's
+parallel block, an int8 KV cache.  That covers the CQ classifier and the
+serving path's qwen1.5, qwen3, chatglm3 and command-r models;
+``check_dense`` refuses any other config.  The reference draws its init from a JAX PRNG key, which torch
 cannot reproduce; ``init_params`` draws the same shapes and scales from a
 ``torch.Generator`` instead.
 """
@@ -43,25 +45,26 @@ class ParamMeta:
 
 def check_dense(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is in the dense subset
-    the port runs."""
+    the port runs.  ``sliding_window`` and ``logit_softcap`` pass: as in
+    the reference, the model code never reads the first (a window comes
+    in through ``window=``), and the chunked attention applies the
+    second."""
     outside = [what for what, ok in (
         (f"family {cfg.family!r}", cfg.family == "dense"),
         ("MoE", not cfg.is_moe),
         ("SSM", not cfg.has_ssm),
         ("encoder-decoder", not cfg.is_encdec),
         ("image prefix", cfg.num_img_tokens == 0),
-        (f"rope_style {cfg.rope_style!r}", cfg.rope_style in ("neox",
+        (f"rope_style {cfg.rope_style!r}", cfg.rope_style in ("neox", "2d",
                                                              "none")),
-        (f"norm_type {cfg.norm_type!r}", cfg.norm_type == "rmsnorm"),
+        (f"norm_type {cfg.norm_type!r}", cfg.norm_type in ("rmsnorm",
+                                                           "layernorm")),
         (f"mlp_act {cfg.mlp_act!r}", cfg.mlp_act == "silu"),
         ("d_ff 0", cfg.d_ff > 0),
-        ("parallel_block", not cfg.parallel_block),
-        ("sliding_window", cfg.sliding_window is None),
-        ("logit_softcap", cfg.logit_softcap == 0.0),
         (f"attn_impl {cfg.attn_impl!r}", cfg.attn_impl in ("chunked",
                                                            "flash")),
         (f"kv_cache_dtype {cfg.kv_cache_dtype!r}",
-         cfg.kv_cache_dtype == "model"),
+         cfg.kv_cache_dtype in ("model", "int8")),
     ) if not ok]
     if outside:
         raise NotImplementedError(
@@ -94,9 +97,14 @@ def _attn_meta(cfg: ModelConfig, L: int) -> Tree:
     return t
 
 
-def _norm_meta(D: int, L: Optional[int] = None) -> Tree:
+def _norm_meta(cfg: ModelConfig, L: Optional[int] = None) -> Tree:
+    D = cfg.d_model
     pre, preax = ((L,), (STACK,)) if L else ((), ())
-    return {"scale": ParamMeta(pre + (D,), preax + ("embed",), init="ones")}
+    t: Tree = {"scale": ParamMeta(pre + (D,), preax + ("embed",),
+                                  init="ones")}
+    if cfg.norm_type == "layernorm":
+        t["bias"] = ParamMeta(pre + (D,), preax + ("embed",), init="zeros")
+    return t
 
 
 def _mlp_meta(cfg: ModelConfig, L: int) -> Tree:
@@ -115,9 +123,9 @@ def model_meta(cfg: ModelConfig) -> Tree:
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     t: Tree = {
         "embed": ParamMeta((V, D), ("vocab", "embed"), scale=1.0 / math.sqrt(D)),
-        "layers": {"norm1": _norm_meta(D, L), "attn": _attn_meta(cfg, L),
-                   "norm2": _norm_meta(D, L), "mlp": _mlp_meta(cfg, L)},
-        "final_norm": _norm_meta(D),
+        "layers": {"norm1": _norm_meta(cfg, L), "attn": _attn_meta(cfg, L),
+                   "norm2": _norm_meta(cfg, L), "mlp": _mlp_meta(cfg, L)},
+        "final_norm": _norm_meta(cfg),
         "cls_head": {
             "w": ParamMeta((D, cfg.num_query_classes), ("embed", None)),
             "b": ParamMeta((cfg.num_query_classes,), (None,), init="zeros"),

@@ -1,9 +1,15 @@
-"""Trunk of the dense models: token embedding, decoder blocks, final norm,
-the LM and classification heads, and the prefill/decode cache.
+"""Trunk of the dense models: token embedding, decoder blocks (sequential,
+or command-r's parallel attention and MLP from one norm), final norm, the
+LM and classification heads, and the prefill/decode cache (in the
+activations' dtype, or int8 with per-token scales).
 
 The dense subset of the reference's ``models/transformer.py``: the
 reference scans stacked layer parameters with ``lax.scan``; here a Python
-loop over layers indexes the same stacked tensors.  Two users:
+loop over layers indexes the same stacked tensors.  Weights may be served
+in int8 (``distributed.quantize.quantize_tree``): the loop dequantizes one
+layer's slice at a time (``maybe_dequant``) in the activations' dtype,
+and the embedding's int8 rows come out in bf16, so an int8-weight model
+computes in bf16.  Two users:
 
 * the pixel path's CQ classifier: ``forward`` + ``classify``, wrapped on
   an explicit device by ``CQClassifier``, which maps (N, T) patch tokens
@@ -26,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.cascade import confidence_from_logits
+from repro_torch.distributed import quantize as QZ
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import meta as M
@@ -35,9 +42,19 @@ Params = Dict[str, object]
 Cache = Dict[str, object]
 
 
+def maybe_dequant(tree, dtype: torch.dtype = torch.bfloat16):
+    """Dequantize int8-served weights (``{"q", "s"}`` leaves) to
+    ``dtype``; float leaves pass unchanged."""
+    return QZ.dequant_tree(tree, dtype)
+
+
 def embed_tokens(cfg: ModelConfig, params: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    emb = params["embed"]
+    if isinstance(emb, dict):        # int8-served: gather rows, then scale
+        rows = emb["q"][tokens].to(torch.float32)
+        return (rows * emb["s"]).to(torch.bfloat16)
+    return emb[tokens]
 
 
 def decoder_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
@@ -45,42 +62,68 @@ def decoder_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
                   k_pos: Optional[torch.Tensor] = None,
                   cache: Optional[Cache] = None, decode: bool = False,
                   window: Optional[int] = None) -> torch.Tensor:
-    """One dense layer: x + attn(norm(x)), then x + mlp(norm(x)).
+    """One dense layer: x + attn(norm(x)), then x + mlp(norm(x)); under
+    ``parallel_block`` (command-r) x + attn(h) + mlp(h) from one norm h.
 
     Without ``decode``: causal attention over the sequence itself; with a
-    ``cache`` (a layer's ``{"k", "v"}`` of shape (B, W, KV, hd)) the rotated
-    K and V are written, in place, to its first S positions (prefill).
-    With ``decode``: x is one token per row at ``q_pos`` (B, 1); its K/V go
-    to slot ``q_pos % W`` of row b, and attention reads the whole cache
+    ``cache`` (a layer's ``{"k", "v"}`` of shape (B, W, KV, hd), plus
+    ``{"k_scale", "v_scale"}`` (B, W, KV) under ``kv_cache_dtype="int8"``)
+    the rotated K and V are written, in place, to its first S positions
+    (prefill; int8 values and their scales under int8, while attention
+    reads the unquantized K/V).  With ``decode``: x is one token per row at
+    ``q_pos`` (B, 1); its K/V go to slot ``q_pos % W`` of row b, and
+    attention reads the whole cache (dequantized to q's dtype under int8)
     under ``k_pos`` (B, W)."""
     h = L.norm_apply(cfg, lp["norm1"], x)
     q, k, v = L.qkv_project(cfg, lp["attn"], h)
     cos, sin = L.rope_freqs(cfg, q_pos)
     q = L.apply_rope(cfg, q, cos, sin)
     k = L.apply_rope(cfg, k, cos, sin)
+    int8_kv = cfg.kv_cache_dtype == "int8"
     if decode:
         kc, vc = cache["k"], cache["v"]              # (B, W, KV, hd)
         B, W = kc.shape[:2]
         rows = torch.arange(B, device=kc.device)
         slot = q_pos[:, 0].long() % W                # per-sequence positions
-        kc[rows, slot] = k[:, 0].to(kc.dtype)
-        vc[rows, slot] = v[:, 0].to(vc.dtype)
+        if int8_kv:
+            (kq, ks), (vq, vs) = L.quantize_kv(k), L.quantize_kv(v)
+            kc[rows, slot], vc[rows, slot] = kq[:, 0], vq[:, 0]
+            cache["k_scale"][rows, slot] = ks[:, 0]
+            cache["v_scale"][rows, slot] = vs[:, 0]
+            kc = L.dequantize_kv(kc, cache["k_scale"], q.dtype)
+            vc = L.dequantize_kv(vc, cache["v_scale"], q.dtype)
+        else:
+            kc[rows, slot] = k[:, 0].to(kc.dtype)
+            vc[rows, slot] = v[:, 0].to(vc.dtype)
         o = L.attention(cfg, q, kc, vc, q_pos, k_pos, causal=True,
                         window=window)
     else:
         if cache is not None:                        # prefill: write cache
             S = k.shape[1]
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
+            if int8_kv:
+                (kq, ks), (vq, vs) = L.quantize_kv(k), L.quantize_kv(v)
+                cache["k"][:, :S], cache["v"][:, :S] = kq, vq
+                cache["k_scale"][:, :S], cache["v_scale"][:, :S] = ks, vs
+            else:
+                cache["k"][:, :S] = k
+                cache["v"][:, :S] = v
         o = L.attention(cfg, q, k, v, q_pos, q_pos, causal=True,
                         window=window)
-    x = x + L.attn_out(lp["attn"], o)
+    mix = L.attn_out(lp["attn"], o)
+    if cfg.parallel_block:                           # command-r
+        return x + mix + L.mlp_apply(cfg, lp["mlp"], h)
+    x = x + mix
     h2 = L.norm_apply(cfg, lp["norm2"], x)
     return x + L.mlp_apply(cfg, lp["mlp"], h2)
 
 
-def _layer(params: Params, i: int) -> Params:
-    return M.tree_map(lambda t: t[i], params["layers"])
+def _layer(params: Params, i: int, dtype: torch.dtype) -> Params:
+    """Layer i's parameters, int8 leaves dequantized to ``dtype``."""
+    return maybe_dequant(M.tree_map(lambda t: t[i], params["layers"]), dtype)
+
+
+def _cache_layer(layers: Cache, i: int) -> Cache:
+    return {name: t[i] for name, t in layers.items()}
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
@@ -89,7 +132,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     x = embed_tokens(cfg, params, tokens)
     q_pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(cfg.num_layers):
-        x = decoder_block(cfg, _layer(params, i), x, q_pos=q_pos,
+        x = decoder_block(cfg, _layer(params, i, x.dtype), x, q_pos=q_pos,
                           window=window)
     return L.norm_apply(cfg, params["final_norm"], x)
 
@@ -97,10 +140,12 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 def lm_logits(cfg: ModelConfig, params: Params,
               hidden: torch.Tensor) -> torch.Tensor:
     """hidden (B, S, D) -> (B, S, V) logits; the embedding is the head
-    under ``tie_embeddings``."""
+    under ``tie_embeddings``, dequantized to hidden's dtype where int8."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    head = maybe_dequant(head, hidden.dtype)
     if cfg.tie_embeddings:
-        return hidden @ params["embed"].T
-    return hidden @ params["lm_head"]
+        head = head.T
+    return L.einsum("bsd,dv->bsv", hidden, head)
 
 
 def classify(cfg: ModelConfig, params: Params,
@@ -108,7 +153,7 @@ def classify(cfg: ModelConfig, params: Params,
     """CQ-specific classifier head: mean-pool over the sequence, then
     linear -> (B, num_query_classes) logits, in f32."""
     pooled = torch.mean(hidden.to(torch.float32), dim=1)
-    head = params["cls_head"]
+    head = maybe_dequant(params["cls_head"], torch.float32)
     return pooled @ head["w"].to(torch.float32) + head["b"].to(torch.float32)
 
 
@@ -117,15 +162,24 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     """An empty decode cache on ``device`` (the card unless the caller
     asks for the CPU): ``pos`` (B,) at 0, ``kpos`` (B, W) at -1 (no slot
     written), and per layer K/V (L, B, W, KV, hd) zeros of ``dtype``, in
-    the attention's (B, S, KV, hd) layout."""
+    the attention's (B, S, KV, hd) layout.  Under ``kv_cache_dtype="int8"``
+    K/V are int8, beside f32 ``k_scale``/``v_scale`` (L, B, W, KV): one
+    scale per token and KV head."""
     device = resolve_device(device)
     shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
              cfg.head_dim)
+    int8_kv = cfg.kv_cache_dtype == "int8"
+    kv_dt = torch.int8 if int8_kv else dtype
+    layers = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
+              "v": torch.zeros(shape, dtype=kv_dt, device=device)}
+    if int8_kv:
+        for name in ("k_scale", "v_scale"):
+            layers[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "kpos": torch.full((batch, cache_len), -1, dtype=torch.int32,
                                device=device),
-            "layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)}}
+            "layers": layers}
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
@@ -145,9 +199,9 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache,
     kpos[rows, pos.long() % kpos.shape[1]] = pos
     layers = cache["layers"]
     for i in range(cfg.num_layers):
-        x = decoder_block(cfg, _layer(params, i), x, q_pos=q_pos,
+        x = decoder_block(cfg, _layer(params, i, x.dtype), x, q_pos=q_pos,
                           k_pos=kpos, decode=True, window=window,
-                          cache={"k": layers["k"][i], "v": layers["v"][i]})
+                          cache=_cache_layer(layers, i))
     x = L.norm_apply(cfg, params["final_norm"], x)
     logits = lm_logits(cfg, params, x)[:, 0]
     return logits, {"pos": pos + 1, "kpos": kpos, "layers": layers}
@@ -159,17 +213,17 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     """Full-sequence forward that also writes the decode cache.
 
     tokens (B, S) -> (last position's logits (B, V), a cache of length
-    ``max(cache_len, S)`` ready for ``decode_step``)."""
+    ``max(cache_len, S)`` in the activations' dtype, ready for
+    ``decode_step``)."""
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
     cache_len = max(cache_len or S, S)
     q_pos = torch.arange(S, dtype=torch.int32, device=x.device)
-    cache = make_cache(cfg, B, cache_len, device=x.device)
+    cache = make_cache(cfg, B, cache_len, dtype=x.dtype, device=x.device)
     layers = cache["layers"]
     for i in range(cfg.num_layers):
-        x = decoder_block(cfg, _layer(params, i), x, q_pos=q_pos,
-                          window=window,
-                          cache={"k": layers["k"][i], "v": layers["v"][i]})
+        x = decoder_block(cfg, _layer(params, i, x.dtype), x, q_pos=q_pos,
+                          window=window, cache=_cache_layer(layers, i))
     x = L.norm_apply(cfg, params["final_norm"], x)
     logits = lm_logits(cfg, params, x[:, -1:])[:, 0]
     ar = torch.arange(cache_len, dtype=torch.int32, device=x.device)

@@ -276,6 +276,12 @@ def test_superstep_kernel_matches_plain_at_every_row_width(
     (1, 4, 4, 977, 977, 64, torch.float32, True),
     (1, 4, 4, 64, 256, 64, torch.float32, False),
     (1, 8, 2, 256, 256, 128, torch.bfloat16, True),
+    # the dense family's GQA: chatglm3's 16:1 and command-r's 8:1 at hd
+    # 128, off the tile, in f32 and bf16 (int8 weights compute in bf16)
+    (1, 32, 2, 300, 300, 128, torch.float32, True),
+    (1, 32, 2, 300, 300, 128, torch.bfloat16, True),
+    (1, 64, 8, 130, 130, 128, torch.float32, True),
+    (1, 64, 8, 130, 130, 128, torch.bfloat16, True),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd, dtype,
                                     causal):
@@ -473,3 +479,91 @@ def test_workload_trains_and_scores_on_the_card(cuda):
     rep = P.run_query(sc, items=got.items, device="cuda").summary()
     assert T.LAUNCHES == rep["kernel_launches"] > 0
     assert rep == P.run_query(sc, items=got.items, device="cpu").summary()
+
+
+def _serving_pair(arch="qwen1.5-0.5b"):
+    cloud_cfg = dataclasses.replace(get_config(arch).reduced(),
+                                    attn_impl="flash")
+    edge_cfg = get_config(arch).edge_variant()
+    return (edge_cfg, M.init_params(edge_cfg, torch.Generator().manual_seed(1)),
+            cloud_cfg, M.init_params(cloud_cfg,
+                                     torch.Generator().manual_seed(0)))
+
+
+@pytest.mark.parametrize("self_draft", [False, True], ids=["edge", "self"])
+def test_speculative_on_card_matches_host(cuda, self_draft):
+    """Speculative decoding on the card: the host's tokens and counts, and
+    one flash launch a layer for every cloud prefill (the first, then one a
+    round), twice that when the flash cloud drafts for itself."""
+    from repro_torch.core import speculative as SP
+    edge_cfg, edge, cloud_cfg, cloud = _serving_pair()
+    # scaled, the trunk picks the greedy token (at the init scale it is the
+    # input token and every draft is accepted)
+    cloud = {**cloud, "layers": {
+        block: {name: 3.0 * t if t.ndim >= 3 and not name.startswith("b")
+                else t for name, t in leaves.items()}
+        for block, leaves in cloud["layers"].items()}}
+    if self_draft:
+        edge_cfg, edge = cloud_cfg, cloud
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cloud_cfg.vocab_size, (1, 70)))
+
+    def run(dev):
+        on = M.tree_map(lambda t: t.to(dev), edge), M.tree_map(
+            lambda t: t.to(dev), cloud)
+        return SP.speculative_generate(edge_cfg, on[0], cloud_cfg, on[1],
+                                       prompt.to(dev), steps=12, k=4)
+
+    FA.LAUNCHES = 0
+    got, stats = run(cuda)
+    launches = FA.LAUNCHES
+    want, want_stats = run("cpu")
+    assert torch.equal(got.cpu(), want)
+    assert stats == want_stats
+    per_prefill = cloud_cfg.num_layers * (2 if self_draft else 1)
+    assert launches == per_prefill * (1 + stats.cloud_steps)
+    if self_draft:
+        assert stats.acceptance_rate == 1.0
+
+
+@pytest.mark.parametrize("mode", ["int8_kv", "int8_weights"])
+def test_int8_serving_on_card_matches_host(cuda, mode):
+    """``DecodeEngine`` on an int8-KV and an int8-weight model: the host's
+    tokens; int8 weights compute in bf16, so each prefill's flash launches
+    take the bf16 kernel."""
+    from repro_torch.distributed import quantize as QZ
+    from repro_torch.serving.engine import DecodeEngine
+    _, _, cfg, params = _serving_pair("qwen3-8b")
+    if mode == "int8_kv":
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    else:
+        params = QZ.quantize_tree(M.tree_map(
+            lambda t: t.to(torch.bfloat16), params), cfg)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 70, 130)]
+    seen = []
+    kernel = FA.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append(q.dtype)
+        return kernel(q, k, v, **kw)
+
+    def serve(dev):
+        eng = DecodeEngine(cfg, params, slots=3, cache_len=140, device=dev)
+        for i, p in enumerate(prompts):
+            assert eng.admit(Request(rid=i, tokens=p, max_new=6))
+        outs = {}
+        while eng.active:
+            for rid, gen in eng.step():
+                outs[rid] = gen
+        return outs
+
+    FA.flash_attention = spy
+    try:
+        got = serve(cuda)
+    finally:
+        FA.flash_attention = kernel
+    assert got == serve("cpu")
+    want_dtype = torch.bfloat16 if mode == "int8_weights" else torch.float32
+    assert seen == [want_dtype] * (cfg.num_layers * len(prompts))

@@ -1,11 +1,11 @@
 """The port's cascade LLM serving path against the reference's.
 
 ``prefill`` / ``decode_step`` / ``forward`` on the reduced qwen1.5-0.5b
-(QKV bias) and qwen3-8b (qk-norm, GQA) configs, with the reference's
-weights carried across through numpy (``bridge.params_from_numpy``).  The
-reference initialises the QKV biases to zeros and the qk-norm scales to
-ones, which would hide a port that drops either, so the bridged trees
-perturb those leaves first.  Tolerances are the reference tests': logits
+(QKV bias), qwen3-8b (qk-norm, GQA), chatglm3-6b ('2d' RoPE, GQA, QKV
+bias) and command-r-35b (parallel block, LayerNorm, tied embeddings)
+configs, with the reference's weights carried across through numpy
+(``bridge.params_from_numpy``; ``torch_model_cases`` perturbs the biases
+and qk-norm scales the reference initialises to zeros and ones).  Tolerances are the reference tests': logits
 within 2e-4 (one step) and 5e-4 (a decode chain), the flash path within
 1e-5 of the chunked one (``tests/test_flash_attention.py``).
 
@@ -43,47 +43,17 @@ from repro_torch.core.thresholds import ThresholdState
 from repro_torch.models import meta as M
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import CascadeServer, DecodeEngine, Request
+from torch_model_cases import as_long as _t
+from torch_model_cases import bridged as _bridged
+from torch_model_cases import port_cfg as _port_cfg
+from torch_model_cases import tokens as _tokens
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ["qwen1.5-0.5b", "qwen3-8b"]
+ARCHS = ["qwen1.5-0.5b", "qwen3-8b", "chatglm3-6b", "command-r-35b"]
 
 
 def _flash(cfg):
     return dataclasses.replace(cfg, attn_impl="flash")
-
-
-def _perturbed(tree, seed):
-    """The reference's tree with nonzero QKV biases and qk-norm scales
-    away from one."""
-    rng = np.random.default_rng(seed)
-    attn = tree["layers"]["attn"]
-    for name in ("bq", "bk", "bv"):
-        if name in attn:
-            attn[name] = (0.1 * rng.standard_normal(attn[name].shape)
-                          ).astype(np.float32)
-    for name in ("q_norm", "k_norm"):
-        if name in attn:
-            attn[name] = (1.0 + 0.2 * rng.standard_normal(attn[name].shape)
-                          ).astype(np.float32)
-    return tree
-
-
-def _bridged(ref_cfg, key, seed):
-    """(reference params, port params): the same perturbed weights."""
-    tree = _perturbed(jax.tree.map(np.asarray, JM.init_params(ref_cfg, key)),
-                      seed)
-    return (jax.tree.map(jnp.asarray, tree),
-            bridge.params_from_numpy(_port_cfg(ref_cfg), tree))
-
-
-def _port_cfg(ref_cfg):
-    """The port's config of the same name and variant."""
-    base = ref_cfg.name.replace("-smoke", "").replace("-edge", "")
-    full = get_config(base)
-    cfg = full.edge_variant() if ref_cfg.name.endswith("-edge") \
-        else full.reduced()
-    return dataclasses.replace(cfg, attn_impl=ref_cfg.attn_impl,
-                               num_layers=ref_cfg.num_layers)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -91,15 +61,6 @@ def model(request):
     ref_cfg = ref_get_config(request.param).reduced()
     jp, tp = _bridged(ref_cfg, jax.random.PRNGKey(3), 0)
     return ref_cfg, jp, _port_cfg(ref_cfg), tp
-
-
-def _tokens(seed, shape, vocab):
-    return np.random.default_rng(seed).integers(0, vocab, shape).astype(
-        np.int32)
-
-
-def _t(x):
-    return torch.from_numpy(np.asarray(x)).long()
 
 
 # --- configs, parameters, refusals ----------------------------------------------
@@ -124,16 +85,15 @@ def test_meta_matches_reference_tree(arch):
     got = {p: (m.shape, m.init)
            for p, m in M.leaves(M.model_meta(get_config(arch)))}
     assert got == want
-    assert ("layers/attn/bq" in got) == (arch == "qwen1.5-0.5b")
-    assert ("layers/attn/q_norm" in got) == (arch == "qwen3-8b")
+    cfg = get_config(arch)
+    assert ("layers/attn/bq" in got) == cfg.attn_bias
+    assert ("layers/attn/q_norm" in got) == cfg.qk_norm
+    assert ("layers/norm1/bias" in got) == (cfg.norm_type == "layernorm")
 
 
 @pytest.mark.parametrize("change", [
     dict(num_experts=4, top_k=2), dict(ssm_state=16), dict(num_enc_layers=2),
-    dict(num_img_tokens=8), dict(sliding_window=8), dict(logit_softcap=30.0),
-    dict(parallel_block=True), dict(rope_style="2d"),
-    dict(norm_type="layernorm"), dict(mlp_act="gelu"),
-    dict(kv_cache_dtype="int8"), dict(attn_impl="ring"),
+    dict(num_img_tokens=8), dict(mlp_act="gelu"), dict(attn_impl="ring"),
 ], ids=lambda c: next(iter(c)))
 def test_check_dense_refuses_what_is_not_ported(change):
     cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), **change)
@@ -143,25 +103,43 @@ def test_check_dense_refuses_what_is_not_ported(change):
         M.check_dense(dataclasses.replace(get_config("qwen1.5-0.5b"), **ok))
 
 
+@pytest.mark.parametrize("change", [
+    dict(sliding_window=8), dict(logit_softcap=30.0),
+    dict(parallel_block=True), dict(rope_style="2d"),
+    dict(norm_type="layernorm"), dict(kv_cache_dtype="int8"),
+], ids=lambda c: next(iter(c)))
+def test_check_dense_accepts_what_is_ported(change):
+    """Six settings the dense slice used to refuse, ported since: chatglm3's
+    '2d' RoPE, command-r's parallel block and LayerNorm, the int8 KV
+    cache, the chunked path's softcap, and ``sliding_window`` (which the
+    model code never reads: a window comes in through ``window=``)."""
+    M.check_dense(dataclasses.replace(get_config("qwen3-8b").reduced(),
+                                      **change))
+
+
 def test_unported_archs_are_refused():
     with pytest.raises(NotImplementedError, match="not in the port"):
         get_config("mamba2-2.7b")
 
 
 def test_bridge_checks_every_leaf(model):
+    """A leaf the config adds (a QKV bias, a qk-norm scale, a LayerNorm
+    bias) missing, a misshapen embedding, and a config outside the dense
+    subset each raise."""
     ref_cfg, jp, cfg, _ = model
     tree = jax.tree.map(np.asarray, jp)
-    attn = dict(tree["layers"]["attn"])
-    extra = "bq" if cfg.attn_bias else "q_norm"
-    del attn[extra]
-    missing = {**tree, "layers": {**tree["layers"], "attn": attn}}
+    block, extra = (("attn", "bq") if cfg.attn_bias else
+                    ("attn", "q_norm") if cfg.qk_norm else ("norm1", "bias"))
+    part = dict(tree["layers"][block])
+    del part[extra]
+    missing = {**tree, "layers": {**tree["layers"], block: part}}
     with pytest.raises(ValueError, match=extra):
         bridge.params_from_numpy(cfg, missing)
     bad = {**tree, "embed": tree["embed"][:, :8]}
     with pytest.raises(ValueError, match="embed"):
         bridge.params_from_numpy(cfg, bad)
     with pytest.raises(NotImplementedError):
-        bridge.params_from_numpy(dataclasses.replace(cfg, sliding_window=4),
+        bridge.params_from_numpy(dataclasses.replace(cfg, mlp_act="gelu"),
                                  tree)
 
 
@@ -491,6 +469,37 @@ def test_make_cache_takes_the_reference_dtype_keyword():
             tuple(want["layers"][name].shape)
     assert T.make_cache(cfg, 2, 8, device="cpu")["layers"]["k"].dtype == \
         torch.float32
+
+
+#: bf16 logits against the reference's, relative to the largest logit: a
+#: bf16 product rounds its output to 8 bits (half an ulp is 2e-3
+#: relative), and a decode step adds a few such roundings
+BF16_LOGIT_RTOL = 1e-2
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "command-r-35b"])
+def test_prefill_cache_takes_the_activations_dtype(arch):
+    """With bf16 weights bridged from the reference, ``prefill`` builds
+    its cache in bf16, as the reference's does (``make_cache(...,
+    dtype=x.dtype)``), and the next ``decode_step`` reads K/V rounded to
+    bf16: its logits agree with the reference's."""
+    ref_cfg = ref_get_config(arch).reduced()
+    jp, tp = _bridged(ref_cfg, jax.random.PRNGKey(7), 5)
+    cfg = _port_cfg(ref_cfg)
+    jb = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jp)
+    tb = M.tree_map(lambda t: t.to(torch.bfloat16), tp)
+    tokens = _tokens(12, (1, 24), cfg.vocab_size)
+    _, jc = JT.prefill(ref_cfg, jb, jnp.asarray(tokens[:, :23]),
+                       cache_len=28)
+    _, tc = T.prefill(cfg, tb, _t(tokens[:, :23]), cache_len=28)
+    assert jc["layers"]["k"].dtype == jnp.bfloat16
+    for name in ("k", "v"):
+        assert tc["layers"][name].dtype == torch.bfloat16
+    jd, _ = JT.decode_step(ref_cfg, jb, jc, jnp.asarray(tokens[:, 23]))
+    td, _ = T.decode_step(cfg, tb, tc, _t(tokens[:, 23]))
+    want = np.asarray(jd.astype(jnp.float32))
+    rel = np.abs(td.float().numpy() - want).max() / np.abs(want).max()
+    assert td.dtype == torch.bfloat16 and rel < BF16_LOGIT_RTOL, rel
 
 
 def test_make_cache_default_device_is_the_card(monkeypatch):
