@@ -96,7 +96,28 @@ Phases, each fatal on failure:
    decode steps through ``DecodeEngine``); chatglm3-6b and command-r-35b
    at full width, 2 layers, drawn on the host (a 1,024-token prefill and
    16 decode steps, flash against chunked on the card);
-11. the training path (paper §IV-A/B): ``build_workload`` at
+11. the remaining families (``families_phase``), each drawn on the card
+   from a seed and freed before the next: granite-moe-1b-a400m at full
+   width and depth (24 layers, 32 experts top-8, flash) behind its edge
+   variant through ``CascadeServer`` on the serving phase's prompts,
+   against the same run under chunked attention (routes, tokens under the
+   near-tie rule, prefill logits within ``MOE_LOGIT_ATOL``), with each
+   prefill's expert choices dropped over capacity and its aux loss;
+   phi3.5-moe-42b-a6.6b at full width, ``PHI_LAYERS`` layers (a
+   1,024-token prefill and 16 decode steps, flash against chunked);
+   mamba2-2.7b at full width and depth (64 layers) through
+   ``DecodeEngine`` on ``FAMILY_LENGTHS`` prompts, its 16-step decode
+   chain against the forward's logits within ``MAMBA_CHAIN_RTOL`` and one
+   layer's ``ssd_chunked`` against ``ssd_reference`` on the engine's
+   1,024-token inputs within ``SSD_RTOL``; hymba-1.5b (32 layers, 25
+   query heads over 5) through ``CascadeServer`` on the same lengths;
+   whisper-large-v3 (32 + 32 layers) on 1,500 stub frames and
+   internvl2-1b (24 layers) behind 256 stub image embeddings, flash
+   against chunked.  Flash launches = layers x cloud prefills on every
+   path (whisper's decoder only; none on mamba2).  Each family also runs
+   at 2 layers on the card against the host: tokens under the near-tie
+   rule, logits within ``LOGIT_ATOL``;
+12. the training path (paper §IV-A/B): ``build_workload`` at
    ``benchmarks/common.py::shared_workload``'s settings (``WORKLOAD``: 8
    cameras, 3 edges, 240 s, 80 AdamW steps of the full-width CQ edge
    model) on the card and on the host — integer fields identical, the
@@ -113,7 +134,7 @@ Phases, each fatal on failure:
    surveiledge schemes), and the three Fig. 5 schemes from a backbone
    pretrained on the card (step counts 40, 4 x 40, 0; All-Fine-tune's
    summed time above SurveilEdge's);
-12. time the card's launch floor (an empty kernel), then each kernel and
+13. time the card's launch floor (an empty kernel), then each kernel and
    its plain version on the inputs the main paths gave it (triage and
    calibrate at every recorded shape with its launches, calibrate also at
    ``CALIBRATE_WIDE``; the pixel kernels also at 1080p, the cascade on
@@ -122,7 +143,9 @@ Phases, each fatal on failure:
    and SDPA at
    every prefill length of the serving run and of the speculative runs,
    summed over their launches, at qwen3-8b's prefill, in f32 and in bf16,
-   and at the dense family's prefills; the superstep at every
+   at the dense family's prefills and at every prefill shape of the
+   remaining families (with the plain version at each one's largest);
+   the superstep at every
    slab shape of the three metropolis runs and the association at every
    (M, K, D) of the track runs, each with its launches, bound and the
    run's sum), and print
@@ -258,14 +281,20 @@ FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: query chunk against a longer cache, non-tile lengths, the head dims of
 #: the other tilings, qwen1.5-0.5b's 1,024-token prefill, qwen3-8b's GQA
 #: prefill, and the dense-family phase's: chatglm3-6b's GQA 16:1 and
-#: command-r-35b's 8:1 at hd 128, on and off the tile
+#: command-r-35b's 8:1 at hd 128, on and off the tile; the remaining
+#: families': granite-moe's 2:1, phi3.5-moe's 4:1 at hd 128, hymba's 25
+#: heads over 5 (on and off the tile), whisper's 20-head MHA and
+#: internvl2's 7:1 behind its image prefix
 FLASH_SHAPES = [(1, 2, 2, 128, 128, 32), (2, 4, 2, 256, 256, 64),
                 (1, 8, 2, 128, 128, 32), (1, 2, 1, 192, 192, 16),
                 (1, 4, 4, 64, 256, 32), (1, 4, 2, 1000, 1000, 64),
                 (1, 2, 2, 300, 300, 96), (1, 2, 1, 130, 130, 256),
                 (1, 16, 16, 1024, 1024, 64), (1, 32, 8, 2048, 2048, 128),
                 (1, 32, 2, 1024, 1024, 128), (1, 64, 8, 1024, 1024, 128),
-                (1, 32, 2, 1001, 1001, 128)]
+                (1, 32, 2, 1001, 1001, 128), (1, 16, 8, 1024, 1024, 64),
+                (1, 32, 8, 1024, 1024, 128), (1, 25, 5, 1024, 1024, 64),
+                (1, 25, 5, 777, 777, 64), (1, 20, 20, 64, 64, 64),
+                (1, 14, 2, 1024, 1024, 64)]
 #: bf16 (int8 weights compute in bf16): the same edge and serving shapes,
 #: and the dense family's GQA at hd 128
 FLASH_BF16_SHAPES = [(1, 2, 2, 128, 128, 32), (1, 16, 16, 1024, 1024, 64),
@@ -345,6 +374,31 @@ INT8_WEIGHT_RTOL = 0.06
 #: a shorter hold for sweeps over many small flash shapes: it covers the
 #: enqueue of a few dozen launches
 SHORT_HOLD_CYCLES = 20_000_000
+#: the families phase: mamba2's and hymba's prompt lengths (multiples of
+#: the 256-token SSD chunk, as ``ssd_chunked`` requires above one chunk),
+#: decode steps, the 2-layer card-vs-host prompt, whisper's decoder
+#: prompt, internvl2's text behind its 256 image tokens, and the depth
+#: phi3.5-moe is cut to (its 32 layers would be 167 GB in f32)
+FAMILY_LENGTHS = (256, 512, 768, 1024)
+FAMILY_NEW = 16
+FAMILY_HOST_PROMPT = 256
+WHISPER_PROMPT = 64
+INTERNVL2_TEXT = 768
+PHI_LAYERS = 2
+#: granite-moe at full depth, flash against chunked prefill logits: the
+#: attention paths differ by ~1e-6 in f32, and across 24 layers x 32
+#: experts that moves some router near-ties to the other side of the
+#: top-8 (and so which choices pass an expert's capacity), each moving
+#: that token's hidden state by a few percent; tokens keep the near-tie
+#: rule at ``LOGIT_ATOL``
+MOE_LOGIT_ATOL = 5e-2
+#: mamba2 (64 layers): decode steps (the per-token recurrence) against
+#: the forward's logits (the chunked dual form), relative to the largest
+#: logit; and one layer's ``ssd_chunked`` against ``ssd_reference`` at
+#: full width (80 heads of 64, N 128, S 1,024), relative to the largest
+#: output and state: f32 both, sums in another order
+MAMBA_CHAIN_RTOL = 1e-3
+SSD_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -998,10 +1052,11 @@ class ServeTap:
 
 
 def same_tokens(what: str, got, want, margins) -> list:
-    """Token rows (tensors or arrays) equal, or differing first where the
+    """Token rows (tensors, arrays or lists) equal, or differing first where the
     plain run's (``want``'s) top-2 margin is below ``LOGIT_ATOL``, after
     which a flip is allowed.  Returns the flips, [(position, margin)]."""
-    g, w = got.flatten().tolist(), want.flatten().tolist()
+    g, w = (list(t) if isinstance(t, list) else t.flatten().tolist()
+            for t in (got, want))
     if g == w:
         return []
     k = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
@@ -1016,11 +1071,33 @@ def same_tokens(what: str, got, want, margins) -> list:
     return [(k, margin)]
 
 
-def same_serving(what: str, got: dict, want: dict, got_tap, want_tap) -> dict:
+def edge_thresholds(torch, edge_cfg, edge, prompts, n_edge: int,
+                    min_gap: float) -> dict:
+    """Thresholds halfway between the edge model's confidences in the
+    prompts (computed on ``edge``'s device): the ``n_edge`` most confident
+    accepted at the edge, the ``n_edge`` least rejected, the rest to the
+    cloud.  Fails where a split lies within ``min_gap``."""
+    from repro_torch.core import cascade as CC
+    from repro_torch.models import transformer as TR
+    dev = edge["embed"].device
+    with torch.no_grad():
+        conf = sorted(float(CC.confidence_from_logits(TR.classify(
+            edge_cfg, edge, TR.forward(edge_cfg, edge, torch.as_tensor(
+                p).long()[None].to(dev))[0]))[0]) for p in prompts)
+    k = n_edge
+    gaps = (conf[-k] - conf[-k - 1], conf[k] - conf[k - 1])
+    if not min(gaps) > min_gap:
+        fail(f"edge confidences too close to split robustly: {conf}")
+    return dict(alpha=(conf[-k - 1] + conf[-k]) / 2,
+                beta=(conf[k - 1] + conf[k]) / 2)
+
+
+def same_serving(what: str, got: dict, want: dict, got_tap, want_tap,
+                 logit_atol: float = LOGIT_ATOL) -> dict:
     """Routes equal; a cloud request's tokens equal up to the first step
     whose top-2 margin in the plain run (``want``) is below
     ``LOGIT_ATOL``, where a flip is allowed; prefill logits within
-    ``LOGIT_ATOL``.  Returns what was compared."""
+    ``logit_atol``.  Returns what was compared."""
     if sorted(got) != sorted(want):
         fail(f"{what}: answered requests {sorted(got)} vs {sorted(want)}")
     ties, logit_err = [], 0.0
@@ -1035,8 +1112,8 @@ def same_serving(what: str, got: dict, want: dict, got_tap, want_tap) -> dict:
             margins = want_tap.margins[rid]
         ties += [(rid, *flip) for flip in same_tokens(
             f"{what}: request {rid}", g.output, w.output, margins)]
-    if not logit_err <= LOGIT_ATOL:
-        fail(f"{what}: prefill logits differ by {logit_err} > {LOGIT_ATOL}")
+    if not logit_err <= logit_atol:
+        fail(f"{what}: prefill logits differ by {logit_err} > {logit_atol}")
     min_margin = min(m for rid, ms in want_tap.margins.items() for m in ms)
     print(f"{what}: same routes and tokens ({len(ties)} near-tie flips), "
           f"prefill logits within {logit_err:.3g}, smallest top-2 margin "
@@ -1353,10 +1430,8 @@ def serving_phase(torch, dev, zero_counts, read_counts) -> dict:
     prompts; against the same run under ``"chunked"`` on the card, and at
     ``num_layers=2`` against the host."""
     from repro_torch.configs import get_config
-    from repro_torch.core import cascade as CC
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import meta as M
-    from repro_torch.models import transformer as TR
     t_phase = time.perf_counter()
     full = get_config("qwen1.5-0.5b")
     cloud_cfg = dataclasses.replace(full, attn_impl="flash")
@@ -1380,14 +1455,7 @@ def serving_phase(torch, dev, zero_counts, read_counts) -> dict:
                .to(torch.int32).numpy() for n in lengths]
     # thresholds halfway between the host's edge confidences: three
     # requests accepted and three rejected at the edge, ten to the cloud
-    with torch.no_grad():
-        conf = sorted(float(CC.confidence_from_logits(TR.classify(
-            edge_cfg, edge, TR.forward(edge_cfg, edge, torch.as_tensor(
-                p).long()[None])))[0]) for p in prompts)
-    gaps = (conf[-3] - conf[-4], conf[3] - conf[2])
-    if not min(gaps) > 1e-3:
-        fail(f"edge confidences too close to split robustly: {conf}")
-    th = dict(alpha=(conf[-4] + conf[-3]) / 2, beta=(conf[2] + conf[3]) / 2)
+    th = edge_thresholds(torch, edge_cfg, edge, prompts, 3, 1e-3)
 
     bench = {"edge_cfg": edge_cfg, "edge": edge, "prompts": prompts,
              "thresholds": th, "cache_len": hi + SERVE_NEW}
@@ -1790,6 +1858,429 @@ def dense_family_phase(torch, dev, serving, zero_counts, read_counts
     out["dense_recorders"] = dense_recs
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"dense family phase {out['phase_s']:.1f} s (draws "
+          f"{json.dumps(out['draw_s'])})", flush=True)
+    return out
+
+
+def stub_inputs(torch, cfg, seed: int, dev) -> dict:
+    """The stubbed frontends' outputs a config takes, for one sequence:
+    seeded normal audio frames (1, enc_seq, d_model) or image embeddings
+    (1, num_img_tokens, 1024), drawn on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = {}
+    if cfg.is_encdec:
+        kw["audio_frames"] = torch.randn((1, cfg.enc_seq, cfg.d_model),
+                                         generator=g, device=dev)
+    if cfg.num_img_tokens:
+        kw["img_embeds"] = torch.randn((1, cfg.num_img_tokens, 1024),
+                                       generator=g, device=dev)
+    return kw
+
+
+def cut_layers(M, params, cfg, n: int):
+    """(cfg, params) with the decoder (and any encoder) cut to ``n``
+    layers, the rest of the tree shared."""
+    cut = dict(params, layers=M.tree_map(lambda t: t[:n], params["layers"]))
+    if cfg.is_encdec:
+        cut["enc_layers"] = M.tree_map(lambda t: t[:n], params["enc_layers"])
+    return dataclasses.replace(
+        cfg, num_layers=n,
+        num_enc_layers=min(n, cfg.num_enc_layers)), cut
+
+
+def generate(torch, TR, cfg, params, prompt, kw: dict, steps: int,
+             zero_counts, read_counts) -> dict:
+    """Greedy decoding through ``transformer.prefill`` and ``decode_step``
+    (one prefill of ``prompt`` (1, S) with the stub inputs ``kw``, then
+    ``steps`` decode steps), the launch counters zeroed just before and
+    read just after: the tokens, every step's logits (host f32) and top-2
+    margin, the flash launches and the prefill and decode seconds."""
+    out = {"tokens": [], "logits": [], "margins": []}
+
+    def take(logits):
+        top = torch.topk(logits[0].float(), 2).values
+        out["margins"].append(float(top[0] - top[1]))
+        out["logits"].append(logits[0].float().cpu())
+        tok = torch.argmax(logits, dim=-1)
+        out["tokens"].append(int(tok[0]))
+        return tok
+
+    with torch.no_grad():
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, cache = TR.prefill(cfg, params, prompt,
+                                   cache_len=prompt.shape[1] + steps, **kw)
+        tok = take(logits)
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = TR.decode_step(cfg, params, cache, tok)
+            tok = take(logits)
+        t2 = time.perf_counter()
+        out["flash_launches"] = read_counts()["flash_attention"]
+    out.update(prefill_s=t1 - t0, decode_s=t2 - t1,
+               cache_len=int(cache["kpos"].shape[1]))
+    return out
+
+
+def same_generation(what: str, got: dict, want: dict, atol: float) -> dict:
+    """Tokens equal under the near-tie rule (the plain run ``want``'s
+    margins); logits within ``atol`` at every step up to the first token
+    that differs.  Returns what was compared."""
+    flips = same_tokens(what, got["tokens"], want["tokens"], want["margins"])
+    upto = flips[0][0] + 1 if flips else len(want["logits"])
+    gap = max(float((a - b).abs().max()) for a, b in zip(
+        got["logits"][:upto], want["logits"][:upto]))
+    scale = max(float(w.abs().max()) for w in want["logits"][:upto])
+    print(f"{what}: tokens equal ({len(flips)} near-tie flips), logits "
+          f"within {gap:.3g} over {upto} steps (largest logit "
+          f"{scale:.3g}), smallest top-2 margin {min(want['margins']):.3g}",
+          flush=True)
+    if not gap <= atol:
+        fail(f"{what}: logits differ by {gap} > {atol}")
+    return {"logits_max_abs_err": gap, "largest_logit": scale,
+            "near_tie_flips": flips, "min_top2_margin": min(want["margins"])}
+
+
+class MoeTap:
+    """Wraps ``layers.moe_apply`` for a run: for every call on a
+    multi-token input (a prefill or the edge's forward) of the model
+    ``name``, the tokens' expert choices over capacity (an expert's
+    choices past ``moe_capacity`` are dropped) and the aux loss; a
+    prefill's calls are its layers, in order."""
+
+    def __init__(self, torch, L, name: str):
+        self.torch, self.L, self.name = torch, L, name
+        self.calls = []
+
+    def __enter__(self):
+        torch, L, inner = self.torch, self.L, self.L.moe_apply
+        self.inner = inner
+
+        def tapped(cfg, p, x):
+            y, aux = inner(cfg, p, x)
+            if cfg.name == self.name and x.shape[1] > 1:
+                probs = torch.softmax(torch.einsum(
+                    "bsd,de->bse", x.float(), p["router"].float()), -1)
+                topi = torch.topk(probs, cfg.top_k, dim=-1).indices
+                per_expert = torch.nn.functional.one_hot(
+                    topi, cfg.num_experts).sum(dim=(1, 2))   # (B, E)
+                cap = L.moe_capacity(cfg, x.shape[1])
+                self.calls.append((x.shape[1], int(torch.clamp(
+                    per_expert - cap, min=0).sum()), float(aux)))
+            return y, aux
+        L.moe_apply = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_apply = self.inner
+
+    def per_prefill(self, layers: int) -> list:
+        """[(S, dropped choices, aux summed over the layers)] a prefill."""
+        return [(chunk[0][0], sum(c[1] for c in chunk),
+                 sum(c[2] for c in chunk))
+                for chunk in (self.calls[i:i + layers]
+                              for i in range(0, len(self.calls), layers))]
+
+
+class SsdCapture:
+    """Wraps ``ssm.ssd_chunked`` for a run: keeps (on the card) the inputs
+    of its first call at ``S`` tokens."""
+
+    def __init__(self, SSM, S: int):
+        self.SSM, self.S, self.args = SSM, S, None
+
+    def __enter__(self):
+        inner = self.inner = self.SSM.ssd_chunked
+
+        def captured(cfg, x, *rest, **kw):
+            if self.args is None and x.shape[1] == self.S:
+                self.args = (cfg, x.clone(), *(a.clone() for a in rest), kw)
+            return inner(cfg, x, *rest, **kw)
+        self.SSM.ssd_chunked = captured
+        return self
+
+    def __exit__(self, *exc):
+        self.SSM.ssd_chunked = self.inner
+
+
+def families_phase(torch, dev, serve_prompts, zero_counts,
+                   read_counts) -> dict:
+    """Phase 11: the remaining model families on the card, drawn on the
+    card from seeds, each freed before the next.
+
+    granite-moe-1b-a400m at full width and depth (24 layers, 32 experts
+    top-8) under flash behind its edge variant through ``CascadeServer``
+    on the serving phase's prompts, against the same run under chunked
+    attention (routes, tokens under the near-tie rule), with the expert
+    choices capacity dropped and the aux loss of each prefill;
+    phi3.5-moe-42b-a6.6b at full width cut to ``PHI_LAYERS`` layers, one
+    ``DENSE_PROMPT``-token prefill and ``FAMILY_NEW`` decode steps, flash
+    against chunked; mamba2-2.7b at full width and depth through
+    ``DecodeEngine`` on ``FAMILY_LENGTHS`` prompts, its decode chain
+    against the forward's logits and one layer's ``ssd_chunked`` against
+    ``ssd_reference`` on the engine's 1,024-token prefill inputs;
+    hymba-1.5b at full width and depth through ``CascadeServer`` on
+    ``FAMILY_LENGTHS`` prompts; whisper-large-v3 (32 + 32 layers) on
+    1,500 stub frames and a ``WHISPER_PROMPT``-token prompt, and
+    internvl2-1b behind 256 stub image embeddings and
+    ``INTERNVL2_TEXT`` text tokens, flash against chunked.  Flash
+    launches equal layers x cloud prefills on every path.  Then each
+    family at 2 layers, card against host on a ``FAMILY_HOST_PROMPT``-
+    token prompt: tokens under the near-tie rule, logits within
+    ``LOGIT_ATOL``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+    from repro_torch.models import meta as M
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as TR
+    from repro_torch.serving.engine import DecodeEngine, Request
+    t_phase = time.perf_counter()
+    out, recs, host_runs = {"draw_s": {}}, {}, {}
+
+    def draw(arch, seed, widths, **change):
+        cfg = dataclasses.replace(get_config(arch), **change)
+        got = (cfg.num_layers, cfg.num_enc_layers, cfg.d_model,
+               cfg.num_heads, cfg.num_kv_heads, cfg.d_ff, cfg.vocab_size)
+        if got != widths:
+            fail(f"{arch} is not at the width and depth it should be: {got}")
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            seed))
+        torch.cuda.synchronize()
+        secs = out["draw_s"][arch] = time.perf_counter() - t0
+        n = sum(t.numel() for _, t in M.leaves(params))
+        out[arch] = {"params": n}
+        print(f"{arch}: {n} parameters drawn on the card in {secs:.2f} s",
+              flush=True)
+        return cfg, params
+
+    def gen(cfg, params, prompt, kw, rec=None):
+        with rec or contextlib.nullcontext():
+            return generate(torch, TR, cfg, params, prompt, kw, FAMILY_NEW,
+                            zero_counts, read_counts)
+
+    def flash_vs_chunked(arch, cfg, params, prompt, kw, layers):
+        """The model under flash (recorded) and under chunked attention:
+        tokens and logits the same, ``layers`` flash launches."""
+        rec = Recorder(FA, "flash_attention")
+        runs = {impl: gen(dataclasses.replace(cfg, attn_impl=impl), params,
+                          prompt, kw, rec if impl == "flash" else None)
+                for impl in ("flash", "chunked")}
+        recs[arch] = rec
+        if runs["flash"]["flash_launches"] != layers or \
+                runs["chunked"]["flash_launches"] != 0:
+            fail(f"{arch}: {runs['flash']['flash_launches']} flash launches "
+                 f"for one prefill (want {layers}), "
+                 f"{runs['chunked']['flash_launches']} under chunked")
+        out[arch].update(
+            prompt=int(prompt.shape[1]), cache_len=runs["flash"]["cache_len"],
+            flash_launches=runs["flash"]["flash_launches"],
+            prefill_s=runs["flash"]["prefill_s"],
+            decode_tok_s=FAMILY_NEW / runs["flash"]["decode_s"],
+            tokens=runs["flash"]["tokens"],
+            flash_vs_chunked=same_generation(
+                f"{arch}, {cfg.num_layers} layers: flash vs chunked on the "
+                f"card", runs["flash"], runs["chunked"], LOGIT_ATOL))
+        return runs
+
+    def host_pair(arch, cfg, params, kw):
+        """The model cut to 2 layers, flash on the card against the host
+        on one ``FAMILY_HOST_PROMPT``-token prompt."""
+        cut_cfg, cut = cut_layers(M, params, cfg, 2)
+        cut_cfg = dataclasses.replace(cut_cfg, attn_impl="flash")
+        prompt = torch.randint(0, cfg.vocab_size, (1, FAMILY_HOST_PROMPT),
+                               generator=torch.Generator().manual_seed(9))
+        card = gen(cut_cfg, cut, prompt.to(dev), kw)
+        host = gen(cut_cfg, M.tree_map(lambda t: t.cpu(), cut), prompt,
+                   {k: v.cpu() for k, v in kw.items()})
+        want = 2 if cfg.has_attn else 0
+        if card["flash_launches"] != want or host["flash_launches"] != 0:
+            fail(f"{arch}, 2 layers: {card['flash_launches']} flash "
+                 f"launches on the card (want {want}), "
+                 f"{host['flash_launches']} on the host")
+        host_runs[arch] = card["flash_launches"]
+        out[arch]["card_vs_host_2"] = same_generation(
+            f"{arch}, 2 layers: card vs host", card, host, LOGIT_ATOL)
+
+    def served(arch, cfg, params, edge_seed, prompts, n_edge):
+        """``CascadeServer`` behind the arch's edge variant (drawn on the
+        host) on ``prompts``: under flash (recorded), then chunked."""
+        edge_cfg = get_config(arch).edge_variant()
+        edge = M.init_params(edge_cfg, torch.Generator().manual_seed(
+            edge_seed))
+        th = edge_thresholds(torch, edge_cfg, M.tree_map(
+            lambda t: t.to(dev), edge), prompts, n_edge, 1e-5)
+        bench = {"edge_cfg": edge_cfg, "edge": edge, "prompts": prompts,
+                 "thresholds": th,
+                 "cache_len": max(len(p) for p in prompts) + SERVE_NEW}
+        rec = Recorder(FA, "flash_attention")
+        with rec:
+            res_f, tap_f, row_f = serve_run(
+                torch, bench, dataclasses.replace(cfg, attn_impl="flash"),
+                params, dev, zero_counts, read_counts)
+        recs[arch] = rec
+        res_c, tap_c, row_c = serve_run(torch, bench, cfg, params, dev,
+                                        zero_counts, read_counts)
+        out[arch].update(thresholds=th, flash=row_f, chunked=row_c)
+        return res_f, tap_f, res_c, tap_c
+
+    # --- granite-moe-1b-a400m: 24 layers, 32 experts top-8 -----------------
+    arch = "granite-moe-1b-a400m"
+    cfg, params = draw(arch, 21,
+                       (24, 0, 1024, 16, 8, 512, 49155))
+    with MoeTap(torch, L, cfg.name) as moe:
+        res_f, tap_f, res_c, tap_c = served(arch, cfg, params, 22,
+                                            serve_prompts, 3)
+    out[arch]["flash_vs_chunked"] = same_serving(
+        f"{arch}, 24 layers: flash vs chunked on the card", res_f, res_c,
+        tap_f, tap_c, MOE_LOGIT_ATOL)
+    prefills = moe.per_prefill(cfg.num_layers)
+    out[arch]["prefills_dropped_aux"] = prefills
+    print(f"{arch} prefills (S, expert choices dropped over capacity, "
+          f"aux over the layers), both runs: {prefills}", flush=True)
+    if len(prefills) != 2 * out[arch]["flash"]["cloud_prefills"] or \
+            not all(np.isfinite(a) and a > 0 for _, _, a in prefills):
+        fail(f"{arch}: MoE prefill stats {prefills}")
+    host_pair(arch, cfg, params, {})
+    del params, res_f, res_c, tap_f, tap_c
+    torch.cuda.empty_cache()
+
+    # --- phi3.5-moe-42b-a6.6b: full width, cut to PHI_LAYERS layers --------
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg, params = draw(arch, 23,
+                       (PHI_LAYERS, 0, 4096, 32, 8, 6400, 32064),
+                       num_layers=PHI_LAYERS)
+    prompt = torch.randint(0, cfg.vocab_size, (1, DENSE_PROMPT),
+                           generator=torch.Generator().manual_seed(24))
+    flash_vs_chunked(arch, cfg, params, prompt.to(dev), {}, PHI_LAYERS)
+    host_pair(arch, cfg, params, {})
+    del params
+    torch.cuda.empty_cache()
+
+    # --- mamba2-2.7b: 64 layers of SSD, no attention ------------------------
+    arch = "mamba2-2.7b"
+    cfg, params = draw(arch, 25, (64, 0, 2560, 0, 1, 0, 50280))
+    g = torch.Generator().manual_seed(26)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).to(
+        torch.int32).numpy() for n in FAMILY_LENGTHS]
+    eng = DecodeEngine(cfg, params, slots=len(prompts),
+                       cache_len=max(FAMILY_LENGTHS) + FAMILY_NEW, device=dev)
+    with SsdCapture(SSM, max(FAMILY_LENGTHS)) as ssd:
+        zero_counts()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            if not eng.admit(Request(rid=i, tokens=p,
+                                     max_new=FAMILY_NEW + 1)):
+                fail("mamba2: a free slot refused a request")
+        t1 = time.perf_counter()
+        done = {}
+        while eng.active:
+            done.update(eng.step())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = read_counts()
+    if sorted(done) != list(range(len(prompts))) or counts[
+            "flash_attention"] or any(len(v) != FAMILY_NEW + 1
+                                      for v in done.values()):
+        fail(f"mamba2 engine: {done}, {counts['flash_attention']} flash")
+    out[arch].update(
+        engine_prefill_s=t1 - t0, engine_decode_s=t2 - t1,
+        decode_tok_s=len(prompts) * FAMILY_NEW / (t2 - t1),
+        prefill_tok_s=sum(FAMILY_LENGTHS) / (t1 - t0),
+        flash_launches=counts["flash_attention"])
+    del eng
+    # one layer's SSD at full width: the chunked dual form against the
+    # per-step recurrence on the engine's 1,024-token prefill inputs
+    scfg, *args, skw = ssd.args
+    y1, s1 = SSM.ssd_chunked(scfg, *args, **skw)
+    y2, s2 = SSM.ssd_reference(scfg, *args, **skw)
+    ssd_gap = (rel_gap(y1, y2), rel_gap(s1, s2))
+    out[arch]["ssd_chunked_vs_reference"] = {
+        "shape": list(args[0].shape), "state": list(s1.shape),
+        "y_rel_gap": ssd_gap[0], "state_rel_gap": ssd_gap[1]}
+    print(f"{arch}: ssd_chunked vs ssd_reference at x "
+          f"{tuple(args[0].shape)}, N {args[3].shape[-1]}: y {ssd_gap[0]:.3g}"
+          f", state {ssd_gap[1]:.3g} of the largest (bound {SSD_RTOL})",
+          flush=True)
+    if not max(ssd_gap) < SSD_RTOL:
+        fail(f"mamba2: ssd_chunked differs from ssd_reference by {ssd_gap}")
+    del ssd, args, y1, y2, s1, s2
+    # the decode chain: prefill 256 tokens, decode the next FAMILY_NEW one
+    # by one, against the forward's logits over 512 (two whole chunks)
+    n0 = FAMILY_LENGTHS[0]
+    chain_toks = torch.as_tensor(np.concatenate(prompts[:2])[:2 * n0]).long(
+    )[None].to(dev)
+    with torch.no_grad():
+        want = TR.lm_logits(cfg, params, TR.forward(cfg, params,
+                                                    chain_toks)[0])[0]
+        _, cache = TR.prefill(cfg, params, chain_toks[:, :n0],
+                              cache_len=n0 + FAMILY_NEW)
+        chain = 0.0
+        for i in range(n0, n0 + FAMILY_NEW):
+            got, cache = TR.decode_step(cfg, params, cache, chain_toks[:, i])
+            chain = max(chain, rel_gap(got[0], want[i]))
+    del cache, want
+    out[arch]["decode_chain_rel_gap"] = chain
+    print(f"{arch}: {FAMILY_NEW}-step decode chain vs forward logits "
+          f"{chain:.3g} of the largest (bound {MAMBA_CHAIN_RTOL}); engine "
+          f"{json.dumps({k: v for k, v in out[arch].items() if k.startswith('engine') or k.endswith('tok_s')})}",
+          flush=True)
+    if not chain < MAMBA_CHAIN_RTOL:
+        fail(f"mamba2: decode chain {chain} from the forward's logits")
+    host_pair(arch, cfg, params, {})
+    del params
+    torch.cuda.empty_cache()
+
+    # --- hymba-1.5b: attention (25 heads over 5) beside SSM heads ----------
+    arch = "hymba-1.5b"
+    cfg, params = draw(arch, 27, (32, 0, 1600, 25, 5, 5504, 32001))
+    g = torch.Generator().manual_seed(28)
+    prompts = [torch.randint(0, 512, (n,), generator=g).to(
+        torch.int32).numpy() for n in FAMILY_LENGTHS]
+    res_f, tap_f, res_c, tap_c = served(arch, cfg, params, 29, prompts,
+                                        1)
+    out[arch]["flash_vs_chunked"] = same_serving(
+        f"{arch}, 32 layers: flash vs chunked on the card", res_f, res_c,
+        tap_f, tap_c)
+    host_pair(arch, cfg, params, {})
+    del params, res_f, res_c, tap_f, tap_c
+    torch.cuda.empty_cache()
+
+    # --- whisper-large-v3: 32 encoder + 32 decoder layers ------------------
+    arch = "whisper-large-v3"
+    cfg, params = draw(arch, 30,
+                       (32, 32, 1280, 20, 20, 5120, 51866))
+    kw = stub_inputs(torch, cfg, 31, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (1, WHISPER_PROMPT),
+                           generator=torch.Generator().manual_seed(32))
+    flash_vs_chunked(arch, cfg, params, prompt.to(dev), kw,
+                     cfg.num_layers)
+    host_pair(arch, cfg, params, kw)
+    del params, kw
+    torch.cuda.empty_cache()
+
+    # --- internvl2-1b: 24 layers behind a 256-token image prefix -----------
+    arch = "internvl2-1b"
+    cfg, params = draw(arch, 33, (24, 0, 896, 14, 2, 4864, 151655))
+    kw = stub_inputs(torch, cfg, 34, dev)
+    prompt = torch.randint(0, cfg.vocab_size, (1, INTERNVL2_TEXT),
+                           generator=torch.Generator().manual_seed(35))
+    runs = flash_vs_chunked(arch, cfg, params, prompt.to(dev), kw,
+                            cfg.num_layers)
+    want_len = INTERNVL2_TEXT + FAMILY_NEW + cfg.num_img_tokens
+    if runs["flash"]["cache_len"] != want_len:
+        fail(f"internvl2: cache length {runs['flash']['cache_len']}, want "
+             f"{want_len} (the image prefix counted)")
+    host_pair(arch, cfg, params, kw)
+    del params, kw, runs
+    torch.cuda.empty_cache()
+
+    out["recorders"] = recs
+    out["host_pair_flash_launches"] = host_runs
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"families phase {out['phase_s']:.1f} s (draws "
           f"{json.dumps(out['draw_s'])})", flush=True)
     return out
 
@@ -2453,8 +2944,18 @@ def main() -> None:
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are on: they would move the logits")
     dense = dense_family_phase(torch, dev, serving, zero_counts, read_counts)
+    serve_prompts = serving["bench"]["prompts"]
     del serving["cloud"], serving["bench"]
     torch.cuda.empty_cache()
+
+    phase("the remaining families: granite-moe (24 layers) and hymba (32) "
+          "through CascadeServer, mamba2 (64) through DecodeEngine, "
+          f"phi3.5-moe at full width ({PHI_LAYERS} layers), whisper (32 + "
+          "32) and internvl2 (24) through prefill and decode")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: they would move the logits")
+    families = families_phase(torch, dev, serve_prompts, zero_counts,
+                              read_counts)
 
     phase("training path: the shared workload (8 cameras, 3 edges, 240 s, "
           "80 steps) trained and scored on the card, Table II, Fig. 5")
@@ -2734,6 +3235,72 @@ def main() -> None:
         f"{r['ms']:.4f} ms, SDPA {r['sdpa_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms, err {r['max_abs_err']:.3g}"
         for r in dense_shapes), flush=True)
+    # the remaining families' prefills: every recorded shape re-checked
+    # against the plain version and timed beside SDPA, summed over its
+    # launches (granite-moe's ten prompt lengths, hymba's two cloud
+    # prompts, one prefill each of phi3.5-moe, whisper's decoder and
+    # internvl2 behind its image prefix)
+    family_shapes = {}
+    for name, rec in families.pop("recorders").items():
+        rows = []
+        for key, (q, k, v, _) in sorted(rec.inputs.items(),
+                                        key=lambda kv: kv[0][2]):
+            err = flash_diff(torch, FA, q, k, v, True)
+            ms = device_ms(torch, lambda: FA.flash_attention(q, k, v), 20,
+                           SHORT_HOLD_CYCLES)
+            lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 20,
+                SHORT_HOLD_CYCLES)
+            bound = flash_bound_ms(geometry(q, k), q.element_size())
+            rows.append({"shape": list(geometry(q, k)),
+                         "launches": rec.counts[key], "ms": ms,
+                         "sdpa_ms": lib, "bound_ms": bound["ms"],
+                         "bound_by": bound["by"], "max_abs_err": err})
+        q, k, v, _ = rec.inputs[max(rec.inputs, key=lambda s: s[2])]
+        plain = device_ms(torch, lambda: FA.flash_attention_torch(
+            q, k, v, True), 5)
+        family_shapes[name] = {
+            "launches": sum(r["launches"] for r in rows),
+            **{f"run_{key}": sum(r["launches"] * r[key] for r in rows)
+               for key in ("ms", "sdpa_ms", "bound_ms")},
+            "largest": {**rows[-1], "plain_ms": plain},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "shapes": rows}
+        del q, k, v
+        print(f"flash at {name}'s prefills ({family_shapes[name]['launches']}"
+              f" launches over {len(rows)} shapes, max err "
+              f"{family_shapes[name]['max_abs_err']:.3g}): largest "
+              f"{tuple(rows[-1]['shape'])} kernel {rows[-1]['ms']:.4f} ms, "
+              f"plain {plain:.4f} ms, SDPA {rows[-1]['sdpa_ms']:.4f} ms, "
+              f"bound {rows[-1]['bound_ms']:.4f} ms; the run's launches: "
+              f"kernel {family_shapes[name]['run_ms']:.4f} ms, SDPA "
+              f"{family_shapes[name]['run_sdpa_ms']:.4f} ms", flush=True)
+    fam_paths = {
+        "granite_moe_24_layers_flash":
+        families["granite-moe-1b-a400m"]["flash"]["flash_launches"],
+        "granite_moe_24_layers_chunked":
+        families["granite-moe-1b-a400m"]["chunked"]["flash_launches"],
+        "phi35_moe_2_layers":
+        families["phi3.5-moe-42b-a6.6b"]["flash_launches"],
+        "mamba2_64_layers": families["mamba2-2.7b"]["flash_launches"],
+        "hymba_32_layers_flash":
+        families["hymba-1.5b"]["flash"]["flash_launches"],
+        "hymba_32_layers_chunked":
+        families["hymba-1.5b"]["chunked"]["flash_launches"],
+        "whisper_32_layers": families["whisper-large-v3"]["flash_launches"],
+        "internvl2_24_layers": families["internvl2-1b"]["flash_launches"],
+        **{"card_vs_host_2_layers_" + arch.replace("-", "_").replace(
+            ".", ""): n
+           for arch, n in families.pop("host_pair_flash_launches").items()}}
+    for name, row in family_shapes.items():
+        want = fam_paths[{"granite-moe-1b-a400m": "granite_moe_24_layers_flash",
+                          "phi3.5-moe-42b-a6.6b": "phi35_moe_2_layers",
+                          "hymba-1.5b": "hymba_32_layers_flash",
+                          "whisper-large-v3": "whisper_32_layers",
+                          "internvl2-1b": "internvl2_24_layers"}[name]]
+        if row["launches"] != want:
+            fail(f"the recorder saw {row['launches']} flash calls on "
+                 f"{name}, the counters {want}")
     fl_paths = {"serving_24_layers_flash":
                 serving["flash_24"]["flash_launches"],
                 "serving_24_layers_chunked":
@@ -2754,7 +3321,8 @@ def main() -> None:
                 "chatglm3_6b_2_layers":
                 dense["chatglm3-6b"]["flash_launches_flash"],
                 "command_r_35b_2_layers":
-                dense["command-r-35b"]["flash_launches_flash"]}
+                dense["command-r-35b"]["flash_launches_flash"],
+                **fam_paths}
     ss_paths = {"metropolis": metro_counts["superstep"],
                 "metropolis_smoke": smoke_counts["superstep"],
                 "metropolis_smoke_superstep1": k1_counts["superstep"]}
@@ -2831,7 +3399,8 @@ def main() -> None:
          "library_max_abs_err": fl_lib_err, "serving_run": fl_run,
          "serving_shapes": fl_shapes, "qwen3_8b": fl_qwen3,
          "qwen3_8b_prefill_logits": deep, "bf16": fl_bf16,
-         "speculative_runs": sp_run, "dense_family_shapes": dense_shapes},
+         "speculative_runs": sp_run, "dense_family_shapes": dense_shapes,
+         "family_shapes": family_shapes},
     ]
     print(json.dumps({"paths": {
         "city_scale": {"cuda_s": city_cuda_s, "cpu_s": city_cpu_s,
@@ -2870,6 +3439,7 @@ def main() -> None:
         **track,
         "serving": {k: v for k, v in serving.items() if k != "recorder"},
         "dense_family": dense,
+        "families": families,
         "training": training},
         "total_s": time.perf_counter() - t_all}))
     for row in kernels:

@@ -66,9 +66,8 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping[str, Any]) -> M.Tree:
     with the reference's structure (layer weights stacked on a leading
     ``num_layers`` axis), as f32 CPU tensors.
 
-    Every leaf path and shape must match ``models.meta.model_meta(cfg)``
-    (which refuses a config outside the port's dense subset); a missing,
-    extra or misshapen leaf raises ``ValueError``."""
+    Every leaf path and shape must match ``models.meta.model_meta(cfg)``;
+    a missing, extra or misshapen leaf raises ``ValueError``."""
     want = {path: meta.shape for path, meta in M.leaves(M.model_meta(cfg))}
     got = {path: np.shape(leaf) for path, leaf in M.leaves(dict(tree))}
     if set(got) != set(want):

@@ -1,0 +1,23 @@
+"""Granite-3.0-1B-A400M: 32 experts top-8 MoE.
+[hf:ibm-granite/granite-3.0-1b-a400m-base]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=8,
+    head_dim=64,
+    d_ff=512,                  # per-expert
+    vocab_size=49155,
+    num_experts=32,
+    top_k=8,
+    tie_embeddings=True,
+    mlp_act="silu",
+    norm_type="rmsnorm",
+    rope_style="neox",
+    rope_theta=10000.0,
+)

@@ -1,0 +1,21 @@
+"""Phi-3.5-MoE-instruct: 42B total / 6.6B active. [hf:microsoft/Phi-3.5-MoE-instruct]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    source="hf:microsoft/Phi-3.5-MoE-instruct",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=6400,                 # per-expert
+    vocab_size=32064,
+    num_experts=16,
+    top_k=2,
+    mlp_act="silu",
+    norm_type="rmsnorm",
+    rope_style="neox",
+    rope_theta=10000.0,
+)

@@ -53,7 +53,7 @@ def _device_of(params) -> torch.device:
 def classifier_loss(cfg: ModelConfig, params, tokens: torch.Tensor,
                     labels: torch.Tensor) -> torch.Tensor:
     """Binary/k-way xent on the CQ classifier head."""
-    h = T.forward(cfg, params, tokens)
+    h, _ = T.forward(cfg, params, tokens)
     logits = T.classify(cfg, params, h)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
@@ -64,7 +64,7 @@ def classifier_loss(cfg: ModelConfig, params, tokens: torch.Tensor,
 def accuracy_of(cfg: ModelConfig, params, tokens: torch.Tensor,
                 labels: torch.Tensor) -> float:
     dev = _device_of(params)
-    h = T.forward(cfg, params, tokens.to(dev))
+    h, _ = T.forward(cfg, params, tokens.to(dev))
     pred = torch.argmax(T.classify(cfg, params, h), dim=-1)
     return float(torch.mean((pred == labels.to(dev)).to(torch.float32)))
 

@@ -9,9 +9,16 @@ are the reference launcher's, plus ``--device`` (the card by default;
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --requests 32 --decode-steps 8 --device cpu
 
+``--arch`` takes every ``ASSIGNED`` architecture.  whisper-large-v3 and
+internvl2-1b also take their stubbed frontends' outputs: seeded normal
+``audio_frames`` (requests, enc_seq, d_model) and ``img_embeds``
+(requests, num_img_tokens, 1024), which the reference's launcher never
+passes (it serves neither).
+
 Parameters and prompts come from ``torch.Generator``s seeded 0 (cloud), 1
-(edge) and 2 (prompts), where the reference uses ``PRNGKey(0/1/2)``; the
-two frameworks draw different numbers from the same seed.
+(edge), 2 (prompts) and 3 (stub frames and image embeddings), where the
+reference uses ``PRNGKey(0/1/2)``; the two frameworks draw different
+numbers from the same seed.
 """
 from __future__ import annotations
 
@@ -59,9 +66,22 @@ def main(argv=None) -> int:
                            (B, S), generator=torch.Generator().manual_seed(2)
                            ).to(dev)
 
+    def batch_of(cfg, toks):
+        """The model's inputs: the tokens, plus its stub frontend's output."""
+        g, n = torch.Generator().manual_seed(3), toks.shape[0]
+        batch = {"tokens": toks}
+        if cfg.is_encdec:
+            batch["audio_frames"] = torch.randn(
+                (n, cfg.enc_seq, cfg.d_model), generator=g).to(dev)
+        if cfg.num_img_tokens:
+            batch["img_embeds"] = torch.randn(
+                (n, cfg.num_img_tokens, 1024), generator=g).to(dev)
+        return batch
+
     # --- edge triage ---------------------------------------------------------
     classify = ST.make_classify_fn(edge_cfg)
-    conf = C.confidence_from_logits(classify(edge_params, {"tokens": tokens}))
+    conf = C.confidence_from_logits(classify(edge_params,
+                                             batch_of(edge_cfg, tokens)))
     th = ThresholdState(alpha=args.alpha, beta=args.beta)
     routes = C.triage(conf, th.alpha, th.beta)
     idx, valid, n_esc = C.compact_escalated(routes, capacity=B)
@@ -75,7 +95,7 @@ def main(argv=None) -> int:
     decode = ST.make_decode_step(cloud_cfg)
 
     t0 = time.perf_counter()
-    logits, cache = prefill(cloud_params, {"tokens": esc_tokens})
+    logits, cache = prefill(cloud_params, batch_of(cloud_cfg, esc_tokens))
     tok = greedy(logits)
     generated = [tok]
     for _ in range(args.decode_steps - 1):

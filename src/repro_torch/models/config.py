@@ -3,8 +3,7 @@
 A single ``ModelConfig`` dataclass describes dense / MoE / SSM / hybrid /
 encoder-decoder (audio) / VLM backbones.  Copied from the reference
 package (it is framework-free); architecture files under
-``repro_torch.configs`` instantiate it and register themselves.  This
-slice of the port builds and runs the dense family only.
+``repro_torch.configs`` instantiate it and register themselves.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-"""Transformer layers of the dense models: RMSNorm and LayerNorm, RoPE
-('neox' and chatglm's '2d'), QKV projection (with optional bias and
-per-head qk RMSNorm), GQA attention with an optional logit softcap, the
-int8 KV-cache codec, SiLU-gated MLP — the dense subset of the reference's
-``models/layers.py``, in PyTorch.
+"""Transformer layers: RMSNorm and LayerNorm, RoPE ('neox' and chatglm's
+'2d'), QKV projection (with optional bias and per-head qk RMSNorm), GQA
+attention with an optional logit softcap, the int8 KV-cache codec, the
+SiLU-gated or GELU MLP and the sort-dispatched MoE — the reference's
+``models/layers.py`` in PyTorch.
 
 All functions are pure and shape-polymorphic; parameters are the nested
 dicts of ``models/meta.py``.  The projections are plain ``torch.einsum``
@@ -12,7 +12,9 @@ cache), they promote as ``jnp`` does.  Attention is the reference's
 chunked path, except where the reference reaches its flash-attention
 kernel (``attn_impl == "flash"``, a causal multi-token pass over its own
 fresh K/V: every prefill); there it launches the port's kernel through
-``kernels.ops.flash_attention``.
+``kernels.ops.flash_attention``.  A setting the port does not know (a
+``norm_type``, ``rope_style``, ``mlp_act`` or ``attn_impl`` outside the
+reference's) raises ``NotImplementedError`` where it is read.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
 def norm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     """RMSNorm or LayerNorm (``cfg.norm_type``), computed in f32."""
     xf = x.to(torch.float32)
+    if cfg.norm_type not in ("rmsnorm", "layernorm"):
+        raise NotImplementedError(f"{cfg.name}: norm_type {cfg.norm_type!r}")
     if cfg.norm_type == "layernorm":
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
@@ -79,6 +83,9 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
     passes the second half through."""
     if cfg.rope_style == "none":
         return x
+    if cfg.rope_style not in ("neox", "2d"):
+        raise NotImplementedError(f"{cfg.name}: rope_style "
+                                  f"{cfg.rope_style!r}")
     cos = cos[..., None, :]
     sin = sin[..., None, :]
     if cfg.rope_style == "neox":
@@ -149,6 +156,8 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
+    if cfg.attn_impl not in ("chunked", "flash"):
+        raise NotImplementedError(f"{cfg.name}: attn_impl {cfg.attn_impl!r}")
     if (cfg.attn_impl == "flash" and Sq > 1 and causal and window is None
             and Sq == Sk):
         o = KOPS.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -207,8 +216,88 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
             ).to(dtype)
 
 
+def _act(cfg: ModelConfig, h: torch.Tensor, g: Optional[torch.Tensor]
+         ) -> torch.Tensor:
+    """The MLP's nonlinearity: silu(g) * h, or (non-gated) GELU in its
+    tanh approximation, ``jax.nn.gelu``'s default."""
+    if cfg.mlp_act == "silu":
+        return F.silu(g) * h
+    if cfg.mlp_act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    raise NotImplementedError(f"{cfg.name}: mlp_act {cfg.mlp_act!r}")
+
+
 def mlp_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """SiLU-gated MLP: (silu(x wg) * (x wi)) wo."""
+    """SiLU-gated MLP (silu(x wg) * (x wi)) wo, or gelu(x wi) wo."""
     h = einsum("bsd,df->bsf", x, p["wi"])
-    g = einsum("bsd,df->bsf", x, p["wg"])
-    return einsum("bsf,fd->bsd", F.silu(g) * h, p["wo"])
+    g = einsum("bsd,df->bsf", x, p["wg"]) if cfg.mlp_act == "silu" else None
+    return einsum("bsf,fd->bsd", _act(cfg, h, g), p["wo"])
+
+
+def moe_capacity(cfg: ModelConfig, S: int) -> int:
+    """Slots per expert for a row of ``S`` tokens:
+    max(8, ceil(ceil(capacity_factor * S * top_k / E) / 8) * 8)."""
+    cap = int(math.ceil(cfg.capacity_factor * S * cfg.top_k
+                        / cfg.num_experts))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y (B, S, D), the Switch load-balance aux loss).
+
+    Top-k routing on an f32 softmax (weights renormalised over the k),
+    then per-row sort-based dispatch with ``moe_capacity`` slots an
+    expert: each row's (token, choice) pairs are stably sorted by expert,
+    the first ``cap`` of an expert keep their slot and the rest are
+    dropped.  The slot -> token map and the slot weights are scattered
+    into buffers with one spare slot (where the drops land, then cut
+    off); the activations are gathered once at the slots, the experts run
+    as one grouped product, and the combine is a weighted scatter-add
+    from the slots (the sentinel token S lands in a spare row).  On the
+    card that scatter-add's order is not fixed."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    TK = S * K
+    dev = x.device
+    logits = einsum("bsd,de->bse", x.to(torch.float32), p["router"].to(
+        torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, K, dim=-1)              # (B, S, K)
+    topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(torch.sum(F.one_hot(topi, E).to(torch.float32), dim=2),
+                    dim=(0, 1))
+    aux = E * torch.sum(me * ce) / K
+
+    cap = moe_capacity(cfg, S)
+    eflat, wflat = topi.reshape(B, TK), topw.reshape(B, TK)
+    tflat = torch.arange(S, device=dev).repeat_interleave(K)[None].expand(
+        B, TK)
+    order = torch.argsort(eflat, dim=1, stable=True)
+    es = torch.gather(eflat, 1, order)
+    ws = torch.gather(wflat, 1, order)
+    ts = torch.gather(tflat, 1, order)
+    # position within the expert's group: index less its first occurrence
+    first = torch.searchsorted(es, es, side="left")
+    pos = torch.arange(TK, device=dev)[None] - first
+    keep = pos < cap
+    dest = torch.where(keep, es * cap + pos, E * cap)       # E*cap: a drop
+    slot_token = torch.full((B, E * cap + 1), S, dtype=torch.long,
+                            device=dev).scatter(1, dest, ts)[:, :-1]
+    slot_w = torch.zeros((B, E * cap + 1), dtype=torch.float32,
+                         device=dev).scatter(
+        1, dest, torch.where(keep, ws, 0.0))[:, :-1]
+    valid = (slot_token < S)[..., None]
+    eb = torch.gather(x, 1, torch.clamp(slot_token, max=S - 1)[..., None]
+                      .expand(B, E * cap, D))
+    eb = torch.where(valid, eb, 0).reshape(B, E, cap, D)
+    h = einsum("becd,edf->becf", eb, p["wi"])
+    g = einsum("becd,edf->becf", eb, p["wg"]) if cfg.mlp_act == "silu" \
+        else None
+    ob = einsum("becf,efd->becd", _act(cfg, h, g), p["wo"]).reshape(
+        B, E * cap, D)
+    contrib = (ob * slot_w[..., None]).to(x.dtype)
+    y = torch.zeros((B, S + 1, D), dtype=x.dtype, device=dev).scatter_add(
+        1, slot_token[..., None].expand(B, E * cap, D), contrib)[:, :S]
+    return y, aux.to(torch.float32)

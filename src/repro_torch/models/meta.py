@@ -1,20 +1,22 @@
-"""Parameter metadata of the dense models: shapes, logical axes, init.
+"""Parameter metadata of every model family: shapes, logical axes, init.
 
 Every parameter leaf is declared once as a :class:`ParamMeta` carrying its
 shape, logical axis names and init rule, as in the reference's
 ``models/meta.py``; ``init_params`` materialises tensors from it.  Layer
-parameters carry a leading ``stack`` axis of size ``num_layers``, so the
-port's parameter tree has the reference's structure and shapes leaf for
-leaf (``bridge.params_from_numpy`` relies on that).
+parameters carry a leading ``stack`` axis of size ``num_layers`` (the
+encoder's ``num_enc_layers``), so the port's parameter tree has the
+reference's structure and shapes leaf for leaf (``bridge.params_from_numpy``
+and ``distributed.quantize.quantize_tree`` rely on that).
 
-The port carries the dense family: attention with optional QKV bias and
-per-head qk RMSNorm, 'neox' or chatglm's '2d' RoPE, a SiLU-gated MLP,
-RMSNorm or LayerNorm (with its bias leaf), sequential or command-r's
-parallel block, an int8 KV cache.  That covers the CQ classifier and the
-serving path's qwen1.5, qwen3, chatglm3 and command-r models;
-``check_dense`` refuses any other config.  The reference draws its init from a JAX PRNG key, which torch
-cannot reproduce; ``init_params`` draws the same shapes and scales from a
-``torch.Generator`` instead.
+The tree covers all six families: attention with optional QKV bias and
+per-head qk RMSNorm, RMSNorm or LayerNorm (with its bias leaf), a SiLU-
+gated or a GELU MLP, a sort-dispatched MoE (``moe`` in place of ``mlp``),
+the Mamba-2 mixer (``ssm``), cross-attention and an encoder stack
+(``cross``, ``norm_cross``, ``enc_layers``, ``enc_norm``) and an image
+projection (``img_proj``).  What the model code cannot run raises where it
+reads the setting.  The reference draws its init from a JAX PRNG key,
+which torch cannot reproduce; ``init_params`` draws the same shapes and
+distributions from a ``torch.Generator`` instead.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ Tree = Dict[str, object]
 class ParamMeta:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"       # normal | zeros | ones
+    init: str = "normal"       # normal | zeros | ones | a_log | dt_bias
     scale: float = 0.02
 
     def __post_init__(self):
@@ -43,63 +45,45 @@ class ParamMeta:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is in the dense subset
-    the port runs.  ``sliding_window`` and ``logit_softcap`` pass: as in
-    the reference, the model code never reads the first (a window comes
-    in through ``window=``), and the chunked attention applies the
-    second."""
-    outside = [what for what, ok in (
-        (f"family {cfg.family!r}", cfg.family == "dense"),
-        ("MoE", not cfg.is_moe),
-        ("SSM", not cfg.has_ssm),
-        ("encoder-decoder", not cfg.is_encdec),
-        ("image prefix", cfg.num_img_tokens == 0),
-        (f"rope_style {cfg.rope_style!r}", cfg.rope_style in ("neox", "2d",
-                                                             "none")),
-        (f"norm_type {cfg.norm_type!r}", cfg.norm_type in ("rmsnorm",
-                                                           "layernorm")),
-        (f"mlp_act {cfg.mlp_act!r}", cfg.mlp_act == "silu"),
-        ("d_ff 0", cfg.d_ff > 0),
-        (f"attn_impl {cfg.attn_impl!r}", cfg.attn_impl in ("chunked",
-                                                           "flash")),
-        (f"kv_cache_dtype {cfg.kv_cache_dtype!r}",
-         cfg.kv_cache_dtype in ("model", "int8")),
-    ) if not ok]
-    if outside:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(outside)} is outside the dense subset "
-            f"the PyTorch port runs (the rest comes with later slices)")
+def _stack(L: int):
+    """(leading shape, leading axes) of a leaf stacked over ``L`` layers
+    (none where ``L`` is 0)."""
+    return ((L,), (STACK,)) if L else ((), ())
 
 
-def _attn_meta(cfg: ModelConfig, L: int) -> Tree:
+def _attn_meta(cfg: ModelConfig, L: int, cross: bool = False) -> Tree:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    pre, preax = _stack(L)
     out_scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
     t: Tree = {
-        "wq": ParamMeta((L, D, H, hd), (STACK, "embed", "heads", "head_dim")),
-        "wk": ParamMeta((L, D, KV, hd),
-                        (STACK, "embed", "kv_heads", "head_dim")),
-        "wv": ParamMeta((L, D, KV, hd),
-                        (STACK, "embed", "kv_heads", "head_dim")),
-        "wo": ParamMeta((L, H, hd, D), (STACK, "heads", "head_dim", "embed"),
+        "wq": ParamMeta(pre + (D, H, hd), preax + ("embed", "heads",
+                                                   "head_dim")),
+        "wk": ParamMeta(pre + (D, KV, hd), preax + ("embed", "kv_heads",
+                                                    "head_dim")),
+        "wv": ParamMeta(pre + (D, KV, hd), preax + ("embed", "kv_heads",
+                                                    "head_dim")),
+        "wo": ParamMeta(pre + (H, hd, D), preax + ("heads", "head_dim",
+                                                   "embed"),
                         scale=out_scale),
     }
     if cfg.attn_bias:
-        t["bq"] = ParamMeta((L, H, hd), (STACK, "heads", "head_dim"),
+        t["bq"] = ParamMeta(pre + (H, hd), preax + ("heads", "head_dim"),
                             init="zeros")
-        t["bk"] = ParamMeta((L, KV, hd), (STACK, "kv_heads", "head_dim"),
+        t["bk"] = ParamMeta(pre + (KV, hd), preax + ("kv_heads", "head_dim"),
                             init="zeros")
-        t["bv"] = ParamMeta((L, KV, hd), (STACK, "kv_heads", "head_dim"),
+        t["bv"] = ParamMeta(pre + (KV, hd), preax + ("kv_heads", "head_dim"),
                             init="zeros")
-    if cfg.qk_norm:
-        t["q_norm"] = ParamMeta((L, hd), (STACK, "head_dim"), init="ones")
-        t["k_norm"] = ParamMeta((L, hd), (STACK, "head_dim"), init="ones")
+    if cfg.qk_norm and not cross:
+        t["q_norm"] = ParamMeta(pre + (hd,), preax + ("head_dim",),
+                                init="ones")
+        t["k_norm"] = ParamMeta(pre + (hd,), preax + ("head_dim",),
+                                init="ones")
     return t
 
 
-def _norm_meta(cfg: ModelConfig, L: Optional[int] = None) -> Tree:
+def _norm_meta(cfg: ModelConfig, L: int = 0) -> Tree:
     D = cfg.d_model
-    pre, preax = ((L,), (STACK,)) if L else ((), ())
+    pre, preax = _stack(L)
     t: Tree = {"scale": ParamMeta(pre + (D,), preax + ("embed",),
                                   init="ones")}
     if cfg.norm_type == "layernorm":
@@ -108,23 +92,101 @@ def _norm_meta(cfg: ModelConfig, L: Optional[int] = None) -> Tree:
 
 
 def _mlp_meta(cfg: ModelConfig, L: int) -> Tree:
+    """``wi``/``wo``, and the gate ``wg`` only under SiLU (a GELU MLP is
+    not gated)."""
     D, F = cfg.d_model, cfg.d_ff
+    pre, preax = _stack(L)
+    out_scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
+    t: Tree = {
+        "wi": ParamMeta(pre + (D, F), preax + ("embed", "mlp")),
+        "wo": ParamMeta(pre + (F, D), preax + ("mlp", "embed"),
+                        scale=out_scale),
+    }
+    if cfg.mlp_act == "silu":
+        t["wg"] = ParamMeta(pre + (D, F), preax + ("embed", "mlp"))
+    return t
+
+
+def _moe_meta(cfg: ModelConfig, L: int) -> Tree:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    pre, preax = _stack(L)
+    out_scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
+    t: Tree = {
+        "router": ParamMeta(pre + (D, E), preax + ("embed", None)),
+        "wi": ParamMeta(pre + (E, D, F), preax + ("experts", "embed", "mlp")),
+        "wo": ParamMeta(pre + (E, F, D), preax + ("experts", "mlp", "embed"),
+                        scale=out_scale),
+    }
+    if cfg.mlp_act == "silu":
+        t["wg"] = ParamMeta(pre + (E, D, F), preax + ("experts", "embed",
+                                                      "mlp"))
+    return t
+
+
+def _ssm_meta(cfg: ModelConfig, L: int) -> Tree:
+    """The Mamba-2 mixer: in-projections, depthwise convs, the per-head
+    time constants (``a_log``, ``dt_bias``, their own init rules), the
+    skip, the gated norm and the out-projection."""
+    D, d_in = cfg.d_model, cfg.ssm_d_inner
+    nh, G, N, W = cfg.ssm_heads, cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_conv
+    pre, preax = _stack(L)
     out_scale = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
     return {
-        "wi": ParamMeta((L, D, F), (STACK, "embed", "mlp")),
-        "wo": ParamMeta((L, F, D), (STACK, "mlp", "embed"), scale=out_scale),
-        "wg": ParamMeta((L, D, F), (STACK, "embed", "mlp")),
+        "wz": ParamMeta(pre + (D, d_in), preax + ("embed", "ssm_inner")),
+        "wx": ParamMeta(pre + (D, d_in), preax + ("embed", "ssm_inner")),
+        "wb": ParamMeta(pre + (D, G, N), preax + ("embed", "groups",
+                                                  "ssm_state")),
+        "wc": ParamMeta(pre + (D, G, N), preax + ("embed", "groups",
+                                                  "ssm_state")),
+        "wdt": ParamMeta(pre + (D, nh), preax + ("embed", "ssm_heads")),
+        "conv_x": ParamMeta(pre + (W, d_in), preax + ("conv_w", "ssm_inner")),
+        "conv_b": ParamMeta(pre + (W, G * N), preax + ("conv_w", None)),
+        "conv_c": ParamMeta(pre + (W, G * N), preax + ("conv_w", None)),
+        "a_log": ParamMeta(pre + (nh,), preax + ("ssm_heads",), init="a_log"),
+        "d_skip": ParamMeta(pre + (nh,), preax + ("ssm_heads",), init="ones"),
+        "dt_bias": ParamMeta(pre + (nh,), preax + ("ssm_heads",),
+                             init="dt_bias"),
+        "gate_norm": ParamMeta(pre + (d_in,), preax + ("ssm_inner",),
+                               init="ones"),
+        "wo": ParamMeta(pre + (d_in, D), preax + ("ssm_inner", "embed"),
+                        scale=out_scale),
     }
 
 
+def layer_meta(cfg: ModelConfig) -> Tree:
+    """Metadata of the (stacked) decoder layer: attention and/or the SSM
+    mixer, cross-attention under an encoder, then a MoE or an MLP where
+    ``d_ff`` is set."""
+    L = cfg.num_layers
+    t: Tree = {"norm1": _norm_meta(cfg, L)}
+    if cfg.has_attn:
+        t["attn"] = _attn_meta(cfg, L)
+    if cfg.has_ssm:
+        t["ssm"] = _ssm_meta(cfg, L)
+    if cfg.is_encdec:
+        t["cross"] = _attn_meta(cfg, L, cross=True)
+        t["norm_cross"] = _norm_meta(cfg, L)
+    if cfg.d_ff > 0:
+        t["norm2"] = _norm_meta(cfg, L)
+        if cfg.is_moe:
+            t["moe"] = _moe_meta(cfg, L)
+        else:
+            t["mlp"] = _mlp_meta(cfg, L)
+    return t
+
+
+def encoder_layer_meta(cfg: ModelConfig) -> Tree:
+    L = cfg.num_enc_layers
+    return {"norm1": _norm_meta(cfg, L), "attn": _attn_meta(cfg, L),
+            "norm2": _norm_meta(cfg, L), "mlp": _mlp_meta(cfg, L)}
+
+
 def model_meta(cfg: ModelConfig) -> Tree:
-    """Full parameter tree metadata for one dense model."""
-    check_dense(cfg)
-    D, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    """Full parameter tree metadata for one model."""
+    D, V = cfg.d_model, cfg.vocab_size
     t: Tree = {
         "embed": ParamMeta((V, D), ("vocab", "embed"), scale=1.0 / math.sqrt(D)),
-        "layers": {"norm1": _norm_meta(cfg, L), "attn": _attn_meta(cfg, L),
-                   "norm2": _norm_meta(cfg, L), "mlp": _mlp_meta(cfg, L)},
+        "layers": layer_meta(cfg),
         "final_norm": _norm_meta(cfg),
         "cls_head": {
             "w": ParamMeta((D, cfg.num_query_classes), ("embed", None)),
@@ -133,6 +195,11 @@ def model_meta(cfg: ModelConfig) -> Tree:
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = ParamMeta((D, V), ("embed", "vocab"))
+    if cfg.is_encdec:
+        t["enc_layers"] = encoder_layer_meta(cfg)
+        t["enc_norm"] = _norm_meta(cfg)
+    if cfg.num_img_tokens > 0:
+        t["img_proj"] = ParamMeta((1024, D), ("vit", "embed"))
     return t
 
 
@@ -156,18 +223,30 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 
 
 def _init_leaf(meta: ParamMeta, gen: torch.Generator) -> torch.Tensor:
+    dev = gen.device
     if meta.init == "zeros":
-        return torch.zeros(meta.shape)
+        return torch.zeros(meta.shape, device=dev)
     if meta.init == "ones":
-        return torch.ones(meta.shape)
-    return torch.randn(meta.shape, generator=gen) * meta.scale
+        return torch.ones(meta.shape, device=dev)
+    if meta.init == "a_log":
+        # A in [1, 16), a_log = log(A); the S4/Mamba convention A = -exp(a_log)
+        u = torch.rand(meta.shape, generator=gen, device=dev)
+        return torch.log(1.0 + 15.0 * u)
+    if meta.init == "dt_bias":
+        # dt ~ logU[1e-3, 1e-1]; bias = softplus^{-1}(dt)
+        u = torch.rand(meta.shape, generator=gen, device=dev)
+        dt = torch.exp(u * (math.log(1e-1) - math.log(1e-3))
+                       + math.log(1e-3))
+        return torch.log(torch.expm1(dt))
+    return torch.randn(meta.shape, generator=gen, device=dev) * meta.scale
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Tree:
-    """A seeded f32 CPU parameter tree with the reference's shapes and
-    scales: a N(0, scale) draw from ``generator`` (a CPU generator) for
-    every normal leaf in ``leaves`` order, ones and zeros where the
-    reference has them."""
+    """A seeded f32 parameter tree with the reference's shapes and init
+    rules, on ``generator``'s device: a N(0, scale) draw from
+    ``generator`` for every normal leaf and a uniform draw for each SSM
+    time constant (``a_log``, ``dt_bias``), in ``leaves`` order; ones and
+    zeros where the reference has them."""
     return tree_map(lambda m: _init_leaf(m, generator),
                     _in_leaf_order(model_meta(cfg)))
 

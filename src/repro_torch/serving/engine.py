@@ -1,7 +1,7 @@
 """Slot-based continuous-batching decode engine with a cascade front-end,
 and the real-time driver for the simulation pipeline.
 
-The serving path for the dense LLMs: a fixed-size decode batch ("slots")
+The serving path for the LLMs: a fixed-size decode batch ("slots")
 runs one ``decode_step`` per tick; finished or empty slots are refilled
 from the request queue (a batch-1 prefill on admission), so the big model
 never idles while requests trickle in — the LLM-serving analogue of the
@@ -11,7 +11,10 @@ model scores each prompt, confident ones are answered at the edge, the
 rest are admitted to the cloud decode batch.  Under the cloud config's
 ``attn_impl="flash"`` every admission's prefill runs the flash-attention
 kernel once a layer; decode (one query token) stays on the chunked path,
-as in the reference.
+as in the reference.  Every family whose prefill takes tokens alone
+serves here (dense, MoE, SSM, hybrid); like the reference's, the engine
+passes no ``audio_frames`` or ``img_embeds``, so whisper and internvl2
+run through ``transformer.prefill``/``decode_step`` directly.
 
 Both classes take an explicit ``device``: the card by default, which
 raises ``RuntimeError`` on a host without one; ``device="cpu"`` runs
@@ -80,7 +83,6 @@ class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int,
                  cache_len: int, window: Optional[int] = None,
                  device="cuda"):
-        M.check_dense(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _on(self.device, params)
@@ -119,8 +121,8 @@ class DecodeEngine:
 
         Positions are per-sequence ((B,)/(B,W)), so slots at different
         prefix lengths coexist — true mid-flight continuous batching."""
-        for name, dst in self.cache["layers"].items():
-            dst[:, i:i + 1] = cache1["layers"][name]
+        M.tree_map(lambda dst, src: dst[:, i:i + 1].copy_(src),
+                   self.cache["layers"], cache1["layers"])
         self.cache["pos"][i] = cache1["pos"][0]
         # pad the batch-1 kpos up to the engine cache length
         kp = cache1["kpos"][0]
@@ -169,7 +171,6 @@ class CascadeServer:
                  slots: int = 4, cache_len: int = 128,
                  thresholds: Optional[ThresholdState] = None,
                  device="cuda"):
-        M.check_dense(edge_cfg)
         self.edge_cfg = edge_cfg
         self.device = resolve_device(device)
         self.edge_params = _on(self.device, edge_params)
@@ -187,7 +188,7 @@ class CascadeServer:
         """The edge CQ model's P(query object) for one (S,) prompt."""
         t = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                             device=self.device)[None]
-        h = T.forward(self.edge_cfg, self.edge_params, t)
+        h, _ = T.forward(self.edge_cfg, self.edge_params, t)
         return float(C.confidence_from_logits(
             T.classify(self.edge_cfg, self.edge_params, h))[0])
 

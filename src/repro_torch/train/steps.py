@@ -17,10 +17,14 @@ from repro_torch.models.config import ModelConfig
 
 def make_prefill_step(cfg: ModelConfig, *,
                       cache_len: Optional[int] = None) -> Callable:
-    """(params, {"tokens": (B, S)}) -> (logits (B, V), cache)."""
+    """(params, {"tokens": (B, S)}, plus ``img_embeds`` or
+    ``audio_frames`` where the model takes them) -> (logits (B, V),
+    cache)."""
     @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor]):
-        return T.prefill(cfg, params, batch["tokens"], cache_len=cache_len)
+        return T.prefill(cfg, params, batch["tokens"], cache_len=cache_len,
+                         img_embeds=batch.get("img_embeds"),
+                         audio_frames=batch.get("audio_frames"))
     return prefill_step
 
 
@@ -34,9 +38,12 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
 
 def make_classify_fn(cfg: ModelConfig) -> Callable:
     """CQ-specific classifier forward (the cascade's edge model):
-    (params, {"tokens": (B, S)}) -> (B, num_query_classes) logits."""
+    (params, {"tokens": (B, S)}, plus ``img_embeds`` or ``audio_frames``
+    where the model takes them) -> (B, num_query_classes) logits."""
     @torch.no_grad()
     def classify(params, batch: Dict[str, torch.Tensor]):
-        h = T.forward(cfg, params, batch["tokens"])
+        h, _ = T.forward(cfg, params, batch["tokens"],
+                         img_embeds=batch.get("img_embeds"),
+                         audio_frames=batch.get("audio_frames"))
         return T.classify(cfg, params, h)
     return classify

@@ -282,6 +282,15 @@ def test_superstep_kernel_matches_plain_at_every_row_width(
     (1, 32, 2, 300, 300, 128, torch.bfloat16, True),
     (1, 64, 8, 130, 130, 128, torch.float32, True),
     (1, 64, 8, 130, 130, 128, torch.bfloat16, True),
+    # the remaining families' prefills: granite-moe's GQA 2:1, phi3.5-moe's
+    # 4:1 at hd 128, hymba's 25 heads over 5, whisper's MHA 20, internvl2's
+    # 7:1 behind its image prefix
+    (1, 16, 8, 200, 200, 64, torch.float32, True),
+    (1, 32, 8, 256, 256, 128, torch.float32, True),
+    (1, 25, 5, 256, 256, 64, torch.float32, True),
+    (1, 25, 5, 97, 97, 64, torch.bfloat16, True),
+    (1, 20, 20, 64, 64, 64, torch.float32, True),
+    (1, 14, 2, 264, 264, 64, torch.float32, True),
 ])
 def test_flash_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, hd, dtype,
                                     causal):
@@ -567,3 +576,58 @@ def test_int8_serving_on_card_matches_host(cuda, mode):
     assert got == serve("cpu")
     want_dtype = torch.bfloat16 if mode == "int8_weights" else torch.float32
     assert seen == [want_dtype] * (cfg.num_layers * len(prompts))
+
+
+#: the remaining families' reduced configs on the card against the host:
+#: f32 products in another order and flash's split TF32 (within 2e-5 of
+#: its plain version) keep the logits this close
+FAMILY_LOGIT_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+                                  "hymba-1.5b", "whisper-large-v3",
+                                  "internvl2-1b"])
+def test_family_prefill_and_decode_on_card_match_host(cuda, arch):
+    """Each family's reduced config under flash: forward, prefill and
+    three decode steps on the card within ``FAMILY_LOGIT_ATOL`` of the
+    host's, and one flash launch a layer for each attention prefill."""
+    from repro_torch.models import transformer as TR
+    cfg = dataclasses.replace(get_config(arch).reduced(), attn_impl="flash")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 35), generator=g)
+    kw = {}
+    if cfg.is_encdec:
+        kw["audio_frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                         generator=g)
+    if cfg.num_img_tokens:
+        kw["img_embeds"] = torch.randn((2, cfg.num_img_tokens, 1024),
+                                       generator=g)
+
+    def run(dev):
+        p = M.tree_map(lambda t: t.to(dev), params)
+        k = {n: t.to(dev) for n, t in kw.items()}
+        t = toks.to(dev)
+        h, aux = TR.forward(cfg, p, t[:, :32], **k)
+        out = [TR.lm_logits(cfg, p, h).cpu(), aux.cpu()[None]]
+        logits, cache = TR.prefill(cfg, p, t[:, :32], cache_len=40, **k)
+        out.append(logits.cpu())
+        for i in range(32, 35):
+            logits, cache = TR.decode_step(cfg, p, cache, t[:, i])
+            out.append(logits.cpu())
+        return out
+
+    FA.LAUNCHES = 0
+    got = run(cuda)
+    assert FA.LAUNCHES == (2 * cfg.num_layers if cfg.has_attn else 0)
+    for a, b in zip(got, run("cpu")):
+        torch.testing.assert_close(a, b, atol=FAMILY_LOGIT_ATOL, rtol=0)
+
+
+def test_family_draws_on_the_card(cuda):
+    """``init_params`` draws on its generator's device."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    assert all(t.device.type == "cuda" for _, t in M.leaves(params))
+    assert float(params["layers"]["ssm"]["a_log"].min()) >= 0.0

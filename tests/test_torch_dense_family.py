@@ -55,8 +55,10 @@ def test_configs_have_the_features_ported_for_them():
     assert (cmd.parallel_block, cmd.norm_type, cmd.tie_embeddings,
             cmd.num_heads, cmd.num_kv_heads, cmd.head_dim) == (
         True, "layernorm", True, 64, 8, 128)
-    for cfg in (glm, cmd):
-        M.check_dense(cfg)
+    for cfg in (glm, cmd):           # the tree carries what each needs
+        got = dict(M.leaves(M.model_meta(cfg)))
+        assert ("layers/attn/bq" in got) == cfg.attn_bias
+        assert ("layers/norm1/bias" in got) == (cfg.norm_type == "layernorm")
 
 
 def test_layernorm_matches_reference():
@@ -103,8 +105,9 @@ def test_parallel_block_matches_reference():
     want, _, _ = JT.decoder_block(
         ref_cfg, jax.tree.map(lambda a: a[0], jp["layers"]), jnp.asarray(x),
         q_pos=jnp.asarray(pos))
-    got = T.decoder_block(cfg, M.tree_map(lambda t: t[0], tp["layers"]),
-                          _t(x), q_pos=_t(pos))
+    got, aux = T.decoder_block(cfg, M.tree_map(lambda t: t[0], tp["layers"]),
+                               _t(x), q_pos=_t(pos))
+    assert float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=LAYER_ATOL, rtol=0)
 
@@ -134,7 +137,7 @@ def test_decode_matches_forward(model):
     the port (``tests/test_decode_consistency.py``'s case)."""
     _, _, cfg, tp = model
     toks = as_long(tokens(22, (2, 24), cfg.vocab_size))
-    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, toks))[:, -1]
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, toks)[0])[:, -1]
     _, cache = T.prefill(cfg, tp, toks[:, :-1], cache_len=28)
     got, _ = T.decode_step(cfg, tp, cache, toks[:, -1])
     assert float((want - got).abs().max()) < 2e-4

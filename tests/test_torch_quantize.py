@@ -138,9 +138,9 @@ def test_int8_weights_forward_close(model):
     h, _ = JT.forward(ref_cfg, jq, jnp.asarray(toks))
     ref_int8 = np.asarray(JT.lm_logits(ref_cfg, jq, h).astype(jnp.float32))
     params = _bf16(tp)
-    want = T.lm_logits(cfg, params, T.forward(cfg, params, as_long(toks)))
+    want = T.lm_logits(cfg, params, T.forward(cfg, params, as_long(toks))[0])
     qp = QZ.quantize_tree(params, cfg)
-    hq = T.forward(cfg, qp, as_long(toks))
+    hq, _ = T.forward(cfg, qp, as_long(toks))
     assert hq.dtype == torch.bfloat16
     got = T.lm_logits(cfg, qp, hq).float()
     want = want.float()
@@ -155,7 +155,7 @@ def test_int8_kv_cache_decode_close(model):
     ref_cfg = dataclasses.replace(ref_cfg, kv_cache_dtype="int8")
     cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     toks = tokens(1, (2, 24), cfg.vocab_size)
-    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, as_long(toks)))[:, -1]
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, as_long(toks))[0])[:, -1]
     _, cache = T.prefill(cfg, tp, as_long(toks[:, :-1]), cache_len=28)
     assert cache["layers"]["k"].dtype == torch.int8
     assert cache["layers"]["k_scale"].dtype == torch.float32

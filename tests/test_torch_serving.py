@@ -91,16 +91,47 @@ def test_meta_matches_reference_tree(arch):
     assert ("layers/norm1/bias" in got) == (cfg.norm_type == "layernorm")
 
 
+def _prefill_inputs(cfg, seed=0, S=8):
+    """One seeded prompt, plus the stub frames or image embeddings the
+    config takes."""
+    g = torch.Generator().manual_seed(seed)
+    kw = {}
+    if cfg.is_encdec:
+        kw["audio_frames"] = torch.randn((1, cfg.enc_seq, cfg.d_model),
+                                         generator=g)
+    if cfg.num_img_tokens:
+        kw["img_embeds"] = torch.randn((1, cfg.num_img_tokens, 1024),
+                                       generator=g)
+    return torch.randint(0, cfg.vocab_size, (1, S), generator=g), kw
+
+
 @pytest.mark.parametrize("change", [
     dict(num_experts=4, top_k=2), dict(ssm_state=16), dict(num_enc_layers=2),
     dict(num_img_tokens=8), dict(mlp_act="gelu"), dict(attn_impl="ring"),
 ], ids=lambda c: next(iter(c)))
 def test_check_dense_refuses_what_is_not_ported(change):
+    """``check_dense`` is gone.  Each setting it refused now builds the
+    reference's parameter tree and prefills; what the port still cannot
+    run (``attn_impl="ring"``, an unknown ``rope_style``) raises
+    ``NotImplementedError`` where the model reads it."""
     cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="outside the dense"):
-        M.check_dense(cfg)
-    for ok in ({}, dict(attn_impl="flash")):
-        M.check_dense(dataclasses.replace(get_config("qwen1.5-0.5b"), **ok))
+    ref = dataclasses.replace(ref_get_config("qwen3-8b").reduced(), **change)
+    ref_leaves = jax.tree_util.tree_leaves_with_path(
+        JM.model_meta(ref), is_leaf=lambda x: isinstance(x, JM.ParamMeta))
+    assert {p: m.shape for p, m in M.leaves(M.model_meta(cfg))} == {
+        "/".join(k.key for k in path): m.shape for path, m in ref_leaves}
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    toks, kw = _prefill_inputs(cfg)
+    if cfg.attn_impl == "ring":
+        with pytest.raises(NotImplementedError, match="attn_impl"):
+            T.prefill(cfg, params, toks, **kw)
+        return
+    logits, _ = T.prefill(cfg, params, toks, **kw)
+    assert logits.shape == (1, cfg.vocab_size) and bool(
+        torch.isfinite(logits).all())
+    with pytest.raises(NotImplementedError, match="rope_style"):
+        T.prefill(dataclasses.replace(cfg, rope_style="yarn"), params, toks,
+                  **kw)
 
 
 @pytest.mark.parametrize("change", [
@@ -109,23 +140,31 @@ def test_check_dense_refuses_what_is_not_ported(change):
     dict(norm_type="layernorm"), dict(kv_cache_dtype="int8"),
 ], ids=lambda c: next(iter(c)))
 def test_check_dense_accepts_what_is_ported(change):
-    """Six settings the dense slice used to refuse, ported since: chatglm3's
+    """Six settings the dense slice once refused, ported since: chatglm3's
     '2d' RoPE, command-r's parallel block and LayerNorm, the int8 KV
     cache, the chunked path's softcap, and ``sliding_window`` (which the
-    model code never reads: a window comes in through ``window=``)."""
-    M.check_dense(dataclasses.replace(get_config("qwen3-8b").reduced(),
-                                      **change))
+    model code never reads: a window comes in through ``window=``).  Each
+    prefills and decodes a step."""
+    cfg = dataclasses.replace(get_config("qwen3-8b").reduced(), **change)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    toks, _ = _prefill_inputs(cfg)
+    _, cache = T.prefill(cfg, params, toks, cache_len=12)
+    logits, _ = T.decode_step(cfg, params, cache, toks[:, -1])
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_unported_archs_are_refused():
+    """Every assigned architecture is registered; a name outside the
+    registry raises."""
+    assert get_config("mamba2-2.7b").has_ssm
     with pytest.raises(NotImplementedError, match="not in the port"):
-        get_config("mamba2-2.7b")
+        get_config("mamba2-2.7b-smoke")
 
 
 def test_bridge_checks_every_leaf(model):
     """A leaf the config adds (a QKV bias, a qk-norm scale, a LayerNorm
-    bias) missing, a misshapen embedding, and a config outside the dense
-    subset each raise."""
+    bias) missing, a misshapen embedding, and a tree of another config (a
+    GELU MLP has no gate ``wg``) each raise."""
     ref_cfg, jp, cfg, _ = model
     tree = jax.tree.map(np.asarray, jp)
     block, extra = (("attn", "bq") if cfg.attn_bias else
@@ -138,7 +177,7 @@ def test_bridge_checks_every_leaf(model):
     bad = {**tree, "embed": tree["embed"][:, :8]}
     with pytest.raises(ValueError, match="embed"):
         bridge.params_from_numpy(cfg, bad)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="wg"):
         bridge.params_from_numpy(dataclasses.replace(cfg, mlp_act="gelu"),
                                  tree)
 
@@ -187,7 +226,7 @@ def test_forward_matches_reference(model):
     tokens = _tokens(2, (2, 40), cfg.vocab_size)
     h, _ = JT.forward(ref_cfg, jp, jnp.asarray(tokens))
     want = np.asarray(JT.lm_logits(ref_cfg, jp, h))
-    got = T.lm_logits(cfg, tp, T.forward(cfg, tp, _t(tokens)))
+    got = T.lm_logits(cfg, tp, T.forward(cfg, tp, _t(tokens))[0])
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=0)
 
 
@@ -196,7 +235,7 @@ def test_decode_matches_forward(model):
     _, _, cfg, tp = model
     B, S = 2, 24
     tokens = _t(_tokens(3, (B, S), cfg.vocab_size))
-    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens))[:, -1]
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens)[0])[:, -1]
     _, cache = T.prefill(cfg, tp, tokens[:, :-1], cache_len=S + 4)
     got, _ = T.decode_step(cfg, tp, cache, tokens[:, -1])
     assert float((want - got).abs().max()) < 2e-4
@@ -207,7 +246,7 @@ def test_multi_step_decode_chain(model):
     _, _, cfg, tp = model
     B, S = 2, 16
     tokens = _t(_tokens(4, (B, S), cfg.vocab_size))
-    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens))
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens)[0])
     _, cache = T.prefill(cfg, tp, tokens[:, :4], cache_len=S)
     for i in range(4, S):
         got, cache = T.decode_step(cfg, tp, cache, tokens[:, i])
@@ -220,7 +259,7 @@ def test_sliding_window_decode_consistency(model):
     _, _, cfg, tp = model
     B, S, W = 1, 24, 8
     tokens = _t(_tokens(5, (B, S), cfg.vocab_size))
-    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens, window=W))[:, -1]
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens, window=W)[0])[:, -1]
     _, cache = T.prefill(cfg, tp, tokens[:, :-1], cache_len=S, window=W)
     got, _ = T.decode_step(cfg, tp, cache, tokens[:, -1], window=W)
     assert float((want - got).abs().max()) < 2e-4
@@ -232,7 +271,7 @@ def test_rotating_window_cache(model):
     _, _, cfg, tp = model
     B, S, W = 1, 20, 8
     tokens = _t(_tokens(6, (B, S), cfg.vocab_size))
-    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens, window=W))
+    want = T.lm_logits(cfg, tp, T.forward(cfg, tp, tokens, window=W)[0])
     _, cache = T.prefill(cfg, tp, tokens[:, :W], cache_len=W, window=W)
     for i in range(W, S):
         got, cache = T.decode_step(cfg, tp, cache, tokens[:, i], window=W)
@@ -245,8 +284,8 @@ def test_flash_impl_equivalent_in_model(model):
     the forward and in prefill (the path the serving engine runs)."""
     _, _, cfg, tp = model
     tokens = _t(_tokens(7, (2, 64), cfg.vocab_size))
-    h1 = T.forward(cfg, tp, tokens)
-    h2 = T.forward(_flash(cfg), tp, tokens)
+    h1, _ = T.forward(cfg, tp, tokens)
+    h2, _ = T.forward(_flash(cfg), tp, tokens)
     assert float((h1 - h2).abs().max()) < 1e-5
     l1, c1 = T.prefill(cfg, tp, tokens, cache_len=70)
     l2, c2 = T.prefill(_flash(cfg), tp, tokens, cache_len=70)

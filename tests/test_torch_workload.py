@@ -200,7 +200,7 @@ def test_cascade_pair_matches_reference(ref_wl, bridged_init):
         return RT.classify(cfg, p, RT.forward(cfg, p, toks, remat=False)[0])
 
     def port_apply(p, toks):
-        return T.classify(cfg, p, T.forward(cfg, p, toks))
+        return T.classify(cfg, p, T.forward(cfg, p, toks)[0])
 
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (24, 16),
                                                dtype=np.int32)

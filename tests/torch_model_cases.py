@@ -1,11 +1,12 @@
 """Reference weights carried into the port, shared by the port's model
-tests (serving, dense family, int8, speculative decoding).
+tests (serving, every model family, int8, speculative decoding).
 
 The reference draws a model's weights (``repro.models.meta.init_params``)
 and ``bridge.params_from_numpy`` carries them across as numpy.  The
-reference initialises QKV biases and LayerNorm biases to zeros and the
-qk-norm scales to ones, which would hide a port that drops any of them,
-so the bridged trees perturb those leaves first.
+reference initialises QKV biases (of attention, cross-attention and the
+encoder) and LayerNorm biases to zeros and the qk-norm scales to ones,
+which would hide a port that drops any of them, so the bridged trees
+perturb whichever of those leaves they have first.
 """
 import dataclasses
 
@@ -20,20 +21,27 @@ from repro_torch.configs import get_config
 
 
 def perturbed(tree, seed):
-    """The reference's tree with nonzero QKV and norm biases and qk-norm
-    scales away from one."""
+    """The reference's tree with nonzero QKV biases (of attention,
+    cross-attention and the encoder) and LayerNorm biases, and qk-norm
+    scales away from one, wherever the tree has those leaves (the dense
+    trees' leaves first, in the order they always took)."""
     rng = np.random.default_rng(seed)
-    attn = tree["layers"]["attn"]
-    for name in ("bq", "bk", "bv"):
-        if name in attn:
-            attn[name] = (0.1 * rng.standard_normal(attn[name].shape)
-                          ).astype(np.float32)
+    layers, enc = tree["layers"], tree.get("enc_layers", {})
+    for attn in (layers.get("attn", {}), layers.get("cross", {}),
+                 enc.get("attn", {})):
+        for name in ("bq", "bk", "bv"):
+            if name in attn:
+                attn[name] = (0.1 * rng.standard_normal(attn[name].shape)
+                              ).astype(np.float32)
+    attn = layers.get("attn", {})
     for name in ("q_norm", "k_norm"):
         if name in attn:
             attn[name] = (1.0 + 0.2 * rng.standard_normal(attn[name].shape)
                           ).astype(np.float32)
-    for norm in (tree["layers"]["norm1"], tree["layers"]["norm2"],
-                 tree["final_norm"]):
+    for norm in (layers["norm1"], layers.get("norm2", {}),
+                 tree["final_norm"], layers.get("norm_cross", {}),
+                 tree.get("enc_norm", {}), enc.get("norm1", {}),
+                 enc.get("norm2", {})):
         if "bias" in norm:
             norm["bias"] = (0.1 * rng.standard_normal(norm["bias"].shape)
                             ).astype(np.float32)
