@@ -134,7 +134,19 @@ Phases, each fatal on failure:
    surveiledge schemes), and the three Fig. 5 schemes from a backbone
    pretrained on the card (step counts 40, 4 x 40, 0; All-Fine-tune's
    summed time above SurveilEdge's);
-13. time the card's launch floor (an empty kernel), then each kernel and
+13. the LLM training stack (``llm_training_phase``): full-width
+   qwen1.5-0.5b (24 layers, 463,989,762 parameters, chunked attention)
+   trained through ``launch/train.py``'s functions for ``LLM_STEPS``
+   steps of ``LLM_BATCH`` x ``LLM_SEQ`` tokens — every loss finite, the
+   last below the first, no kernel launched; printed: every loss, the
+   first and steady step ms, tokens/s and peak memory — then one step at
+   microbatches 2 against 1 (``LLM_MICRO_RTOL``), a checkpoint of the
+   trained parameters restored bit for bit; the same weights at 2 layers
+   and every reduced ``ASSIGNED`` config, one step on the card against
+   the host (``LLM_LOSS_ATOL``, ``LLM_GNORM_RTOL``,
+   ``LLM_MOE_LOSS_ATOL``); flash refusing a gradient on the card; one
+   step profiled (``train_step_trace``);
+14. time the card's launch floor (an empty kernel), then each kernel and
    its plain version on the inputs the main paths gave it (triage and
    calibrate at every recorded shape with its launches, calibrate also at
    ``CALIBRATE_WIDE``; the pixel kernels also at 1080p, the cascade on
@@ -399,6 +411,28 @@ MOE_LOGIT_ATOL = 5e-2
 #: output and state: f32 both, sums in another order
 MAMBA_CHAIN_RTOL = 1e-3
 SSD_RTOL = 1e-4
+#: phase 13, the LLM training stack: full-width qwen1.5-0.5b trained
+#: through ``launch/train.py``'s own functions (seed-0 weights drawn on
+#: the card, the loader's seed-0 stream, AdamW under the launcher's
+#: cosine schedule, every layer rematerialized), ``LLM_BATCH`` x
+#: ``LLM_SEQ`` tokens a step for ``LLM_STEPS`` steps at ``LLM_LR``
+LLM_ARCH = "qwen1.5-0.5b"
+LLM_BATCH, LLM_SEQ, LLM_STEPS, LLM_LR = 8, 512, 30, 3e-4
+#: one step at microbatches 2 against microbatches 1 on one state and
+#: batch, loss and grad_norm relative: the same f32 sums taken over two
+#: halves of the batch, then averaged
+LLM_MICRO_RTOL = 1e-4
+#: the same weights cut to 2 layers, one step on the card and on the
+#: host at ``LLM_HOST_BATCH`` x ``LLM_HOST_SEQ``; and one step of every
+#: reduced ``ASSIGNED`` config (2 x ``LLM_REDUCED_SEQ``), card against
+#: host: f32 on both, sums in another order (loss absolute, grad_norm
+#: relative)
+LLM_HOST_BATCH, LLM_HOST_SEQ, LLM_REDUCED_SEQ = 2, 128, 32
+LLM_LOSS_ATOL = 1e-4
+LLM_GNORM_RTOL = 1e-4
+#: the MoEs' loss, card against host: a router near-tie that falls the
+#: other way sends one token to another expert (as ``MOE_LOGIT_ATOL``)
+LLM_MOE_LOSS_ATOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -2545,6 +2579,265 @@ def training_phase(torch, T, zero_counts) -> dict:
             "fig5": {"pretrain_s": pre_s, **fig5_rows}}
 
 
+def train_step_trace(torch, cfg, step_fn, state, batch,
+                     steady_ms: float) -> dict:
+    """Where one LLM train step's time goes: the step under
+    ``torch.profiler`` (its result dropped), the device busy for the union
+    of its kernel, copy and memset intervals, the idle share against the
+    unprofiled steady step, the device time of the GEMMs (cuBLAS kernels)
+    and the kernels that took most.  The bound is the step's f32
+    operations over the f32 rate: every matmul weight (the tied head
+    included) twice a token in each of the forward, the rematerialized
+    forward and the backward's two products, and the chunked attention's
+    full (S x S) score and value products in each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}                 # kernel names cut to 96 characters
+    for e in kernels:
+        by_name[e.name[:96]] = by_name.get(e.name[:96], 0.0) \
+            + e.time_range.elapsed_us()
+    gemm = ("gemm", "cutlass", "xmma", "nvjet", "sm90_")
+    gemm_us = sum(us for n, us in by_name.items()
+                  if any(g in n.lower() for g in gemm))
+    B, S = batch["tokens"].shape
+    tokens = B * S
+    mm = (cfg.num_layers * (cfg.d_model * (cfg.num_heads + 2
+                                           * cfg.num_kv_heads)
+                            * cfg.head_dim
+                            + cfg.num_heads * cfg.head_dim * cfg.d_model
+                            + 3 * cfg.d_model * cfg.d_ff)
+          + cfg.vocab_size * cfg.d_model)
+    flops = 8 * tokens * mm + 16 * cfg.num_layers * B * cfg.num_heads \
+        * S * S * cfg.head_dim
+    busy_ms = busy_us / 1e3 if spans else None
+    row = {"profiled_wall_ms": profiled_ms, "device_busy_ms": busy_ms,
+           "device_ops": len(spans),
+           "idle_share": None if busy_ms is None else 1 - busy_ms / steady_ms,
+           "gemm_ms": gemm_us / 1e3, "flops": flops,
+           "bound_ms": flops / F32_FLOP_S * 1e3, "bound_by": "operations",
+           "top_kernels_ms": {n: us / 1e3 for n, us in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:8]}}
+    print(f"train step trace: {json.dumps(row)}" + (
+        "" if spans else "; device busy time not measured: the profiler "
+        "recorded no device events"), flush=True)
+    return row
+
+
+def llm_training_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 13: the LLM training stack on the card.  Full-width
+    ``LLM_ARCH`` (chunked attention) trained for ``LLM_STEPS`` steps
+    through ``launch/train.py``'s functions: every loss finite and the
+    last below the first, no kernel of the port launched; one step at
+    microbatches 2 against 1 on the trained state and a fresh batch
+    (``LLM_MICRO_RTOL``); the trained parameters saved and restored bit
+    for bit with ``latest_step`` = ``LLM_STEPS``.  Then the same initial
+    weights cut to 2 layers and every reduced ``ASSIGNED`` config, one
+    step on the card against the host (``LLM_LOSS_ATOL``,
+    ``LLM_GNORM_RTOL``; ``LLM_MOE_LOSS_ATOL`` for the MoEs), the
+    parameters moved; and flash refusing a gradient on the card."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import checkpoint as CK
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as LT
+    from repro_torch.models import layers as L
+    from repro_torch.models import meta as M
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import steps as ST
+    t_phase = time.perf_counter()
+    cfg = get_config(LLM_ARCH)
+    widths = (cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.attn_impl)
+    if widths != (24, 1024, 151936, "chunked"):
+        fail(f"{LLM_ARCH} is not at the width and depth it should be: "
+             f"{widths}")
+
+    def to_host(tree):
+        return M.tree_map(lambda t: t.cpu(), tree)
+
+    def fresh(params):
+        """A launcher's state at step 0 around ``params``."""
+        return ST.TrainState(params, A.init(params), torch.zeros(
+            (), dtype=torch.int32, device=next(M.leaves(params))[1].device))
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = LT.init_state(cfg, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in M.leaves(state.params))
+    step_fn = LT.make_step(cfg, lr=LLM_LR, steps=LLM_STEPS)
+    data = LT.batches(cfg, LLM_BATCH, LLM_SEQ, dev)
+    losses, step_ms = [], []
+    zero_counts()
+    t_train = time.perf_counter()
+    for _ in range(LLM_STEPS):
+        batch = next(data)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))       # waits for the step
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    train_s = time.perf_counter() - t_train
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady_ms = float(np.median(step_ms[5:]))
+    tokens_s = LLM_BATCH * LLM_SEQ / (steady_ms / 1e3)
+    print(f"{LLM_ARCH} training: {n_params} parameters drawn on the card in "
+          f"{draw_s:.2f} s; {LLM_STEPS} steps of {LLM_BATCH} x {LLM_SEQ} "
+          f"tokens in {train_s:.2f} s: first step {step_ms[0]:.1f} ms, "
+          f"steady (median of steps 6-{LLM_STEPS}) {steady_ms:.1f} ms, "
+          f"{tokens_s:.0f} tokens/s; peak memory {peak_gb:.2f} GB; "
+          f"launches {launches}", flush=True)
+    print("losses: " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"{LLM_ARCH} training: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{LLM_ARCH} training: the loss did not fall ({losses[0]} -> "
+             f"{losses[-1]})")
+    if any(launches.values()):
+        fail(f"the training path launched a kernel: {launches}")
+
+    batch = next(data)
+    trace = train_step_trace(torch, cfg, step_fn, state, batch, steady_ms)
+    _, m1 = step_fn(state, batch)
+    _, m2 = LT.make_step(cfg, lr=LLM_LR, steps=LLM_STEPS,
+                         microbatches=2)(state, batch)
+    micro = {k: abs(float(m2[k]) - float(m1[k])) / abs(float(m1[k]))
+             for k in ("loss", "grad_norm")}
+    print(f"microbatches 2 against 1: loss {float(m1['loss']):.6f}, "
+          f"grad_norm {float(m1['grad_norm']):.6f}; relative gaps "
+          f"{json.dumps(micro)}", flush=True)
+    if not max(micro.values()) <= LLM_MICRO_RTOL:
+        fail(f"microbatches 2 differ from 1 by {micro} > {LLM_MICRO_RTOL}")
+    del m1, m2, batch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "params.npz")
+        t0 = time.perf_counter()
+        CK.save(path, state.params, step=LLM_STEPS)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = CK.restore(path, state.params)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        nbytes = Path(path).stat().st_size
+        if CK.latest_step(path) != LLM_STEPS:
+            fail(f"checkpoint step {CK.latest_step(path)}, want {LLM_STEPS}")
+    same = [name for (name, a), (_, b) in zip(M.leaves(back),
+                                              M.leaves(state.params))
+            if a.device == b.device and torch.equal(a, b)]
+    if len(same) != len(list(M.leaves(state.params))):
+        fail("the checkpoint did not restore the trained parameters bit for "
+             "bit on the card")
+    print(f"checkpoint: {nbytes} bytes saved in {save_s:.2f} s, restored to "
+          f"the card in {restore_s:.2f} s, {len(same)} leaves bitwise equal, "
+          f"latest_step {LLM_STEPS}", flush=True)
+    del back, state, metrics, data
+    torch.cuda.empty_cache()
+
+    def card_and_host(cfg, params, batch, what):
+        """One launcher step from (params, fresh AdamW state) on the card
+        and the host; fails past the tolerances; returns the gaps."""
+        step = LT.make_step(cfg, lr=LLM_LR, steps=LLM_STEPS)
+        t0 = time.perf_counter()
+        new, mc = step(fresh(params), batch)
+        loss_c = float(mc["loss"])
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, mh = step(fresh(to_host(params)), to_host(batch))
+        host_s = time.perf_counter() - t0
+        moved = max(float((a - b).abs().max()) for (_, a), (_, b) in
+                    zip(M.leaves(new.params), M.leaves(params)))
+        gaps = {"loss": abs(loss_c - float(mh["loss"])),
+                "grad_norm": abs(float(mc["grad_norm"])
+                                 - float(mh["grad_norm"]))
+                / float(mh["grad_norm"]),
+                "loss_card": loss_c, "moved": moved, "card_s": card_s,
+                "host_s": host_s}
+        atol = LLM_MOE_LOSS_ATOL if cfg.is_moe else LLM_LOSS_ATOL
+        if not gaps["loss"] <= atol:
+            fail(f"{what}: loss differs by {gaps['loss']} > {atol} between "
+                 f"card and host")
+        if not cfg.is_moe and not gaps["grad_norm"] <= LLM_GNORM_RTOL:
+            fail(f"{what}: grad_norm differs by {gaps['grad_norm']} > "
+                 f"{LLM_GNORM_RTOL} (relative) between card and host")
+        if not moved > 0:
+            fail(f"{what}: the train step moved no parameter")
+        return gaps
+
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    cut_cfg, cut = cut_layers(M, params, cfg, 2)
+    two = card_and_host(cut_cfg, cut, next(LT.batches(
+        cut_cfg, LLM_HOST_BATCH, LLM_HOST_SEQ, dev)), f"{LLM_ARCH}, 2 layers")
+    print(f"{LLM_ARCH}, 2 layers, {LLM_HOST_BATCH} x {LLM_HOST_SEQ}: card "
+          f"vs host {json.dumps(two)}", flush=True)
+    del params, cut
+    torch.cuda.empty_cache()
+    reduced = {}
+    for seed, arch in enumerate(ASSIGNED):
+        rcfg = get_config(arch).reduced()
+        rp = M.init_params(rcfg, torch.Generator(device=dev).manual_seed(
+            seed))
+        reduced[arch] = card_and_host(rcfg, rp, next(LT.batches(
+            rcfg, 2, LLM_REDUCED_SEQ, dev)), f"{arch} reduced")
+    print("reduced, one step, card vs host (loss gap, grad_norm relative "
+          "gap): " + "; ".join(f"{a} {g['loss']:.3g} {g['grad_norm']:.3g}"
+                               for a, g in reduced.items()), flush=True)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, 4, 64, 64), generator=g, device=dev)
+               for _ in range(3))
+    before = FA.LAUNCHES
+    refused = []
+    for what, call in (
+            ("flash_attention", lambda: FA.flash_attention(
+                q.requires_grad_(), k, v)),
+            ("layers.attention", lambda: L.attention(
+                dataclasses.replace(cut_cfg, attn_impl="flash"),
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                torch.arange(64, device=dev), torch.arange(64, device=dev)))):
+        try:
+            call()
+        except RuntimeError as exc:
+            refused.append(what)
+            msg = str(exc)
+    if refused != ["flash_attention", "layers.attention"] or \
+            FA.LAUNCHES != before:
+        fail(f"flash on the card refused a gradient only in {refused}, "
+             f"launches {FA.LAUNCHES - before}")
+    print(f"flash refuses a gradient on the card ({', '.join(refused)}; no "
+          f"launch): {msg}", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"LLM training phase {phase_s:.1f} s", flush=True)
+    return {"arch": LLM_ARCH, "params": n_params, "batch": LLM_BATCH,
+            "seq": LLM_SEQ, "steps": LLM_STEPS, "lr": LLM_LR,
+            "draw_s": draw_s, "train_s": train_s, "losses": losses,
+            "step_ms": step_ms, "steady_step_ms": steady_ms,
+            "tokens_per_s": tokens_s, "peak_memory_gb": peak_gb,
+            "trace": trace,
+            "launches": launches, "microbatch_gaps": micro,
+            "checkpoint": {"bytes": nbytes, "save_s": save_s,
+                           "restore_s": restore_s},
+            "two_layers_card_vs_host": two, "reduced_card_vs_host": reduced,
+            "phase_s": phase_s}
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -2964,6 +3257,13 @@ def main() -> None:
     training = training_phase(torch, T, zero_counts)
     tri_train = training.pop("recorder")
 
+    phase(f"LLM training: full-width {LLM_ARCH} ({LLM_STEPS} steps of "
+          f"{LLM_BATCH} x {LLM_SEQ} tokens), microbatches, checkpoint; 2 "
+          "layers and every reduced config, card vs host")
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 matmuls are on: they would move the losses")
+    llm = llm_training_phase(torch, dev, zero_counts, read_counts)
+
     phase("timing on the main paths' inputs")
     # the card's launch floor: triage.cu's empty kernel, the same build,
     # hold and reps as the kernels it is read against
@@ -3322,7 +3622,9 @@ def main() -> None:
                 dense["chatglm3-6b"]["flash_launches_flash"],
                 "command_r_35b_2_layers":
                 dense["command-r-35b"]["flash_launches_flash"],
-                **fam_paths}
+                **fam_paths,
+                "llm_training_24_layers":
+                llm["launches"]["flash_attention"]}
     ss_paths = {"metropolis": metro_counts["superstep"],
                 "metropolis_smoke": smoke_counts["superstep"],
                 "metropolis_smoke_superstep1": k1_counts["superstep"]}
@@ -3440,7 +3742,8 @@ def main() -> None:
         "serving": {k: v for k, v in serving.items() if k != "recorder"},
         "dense_family": dense,
         "families": families,
-        "training": training},
+        "training": training,
+        "llm_training": llm},
         "total_s": time.perf_counter() - t_all}))
     for row in kernels:
         row["over_floor_ms"] = row["ms"] - floor_ms

@@ -90,9 +90,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``flash_attention_torch`` for CPU tensors.  Shapes as
     ``flash_attention_torch``; any strides whose last axis is 1 (a
     transposed (B, S, H, hd) view goes in as it is), and the output keeps
-    q's layout."""
+    q's layout.  Forward only, on both devices: where autograd would need
+    a gradient of q, k or v it raises ``RuntimeError``."""
     global LAUNCHES
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel writes its output through a raw pointer, so autograd
+        # would drop the gradients of q, k and v without a word; the
+        # reference's Pallas kernel has no backward either
+        raise RuntimeError("flash_attention has no backward: run it under "
+                           "torch.no_grad(), or train with "
+                           "attn_impl='chunked'")
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal)
     if q.device.type != "cuda":

@@ -1,1 +1,2 @@
-"""Entry points of the port: the serving launcher (``serve``)."""
+"""Entry points of the port: the serving launcher (``serve``) and the
+training launcher (``train``)."""

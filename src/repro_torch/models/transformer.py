@@ -17,7 +17,7 @@ Python loop over layers indexes the same stacked tensors.  Weights may be
 served in int8 (``distributed.quantize.quantize_tree``): the loop
 dequantizes one layer's slice at a time (``maybe_dequant``) in the
 activations' dtype, and the embedding's int8 rows come out in bf16, so an
-int8-weight model computes in bf16.  Two users:
+int8-weight model computes in bf16.  Three users:
 
 * the pixel path's CQ classifier: ``forward`` + ``classify``, wrapped on
   an explicit device by ``CQClassifier``, which maps (N, T) patch tokens
@@ -26,7 +26,9 @@ int8-weight model computes in bf16.  Two users:
 * the serving path (``serving/engine.py``): ``prefill`` writes a decode
   cache and returns the last position's logits, ``decode_step`` decodes
   one token per sequence against it.  Positions are per sequence, so
-  slots at different prefix lengths share one decode batch.
+  slots at different prefix lengths share one decode batch;
+* the LLM train step (``train/steps.py``): ``forward`` with ``remat``,
+  then ``lm_logits``, differentiated by autograd.
 
 The cache is updated in place (the reference returns a new one): prefill
 writes its own fresh cache, and ``decode_step`` writes each layer's new
@@ -36,10 +38,12 @@ multi-GB cache.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.cascade import confidence_from_logits
 from repro_torch.distributed import quantize as QZ
@@ -236,22 +240,37 @@ def encoder_block(cfg: ModelConfig, lp: Params,
     return x + L.mlp_apply(cfg, lp["mlp"], h2)
 
 
-def encode(cfg: ModelConfig, params: Params,
-           frames: torch.Tensor) -> torch.Tensor:
+def _rematted(fn: Callable, remat: bool) -> Callable:
+    """``fn`` itself, or under ``remat`` ``fn`` whose activations are not
+    kept for the backward pass but recomputed in it (the analogue of the
+    reference's ``jax.checkpoint`` of a scanned layer)."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """frames (B, Se, D), the stubbed conv frontend's output -> the
     encoder's (B, Se, D): sinusoid positions, the encoder stack, its
-    final norm."""
+    final norm.  ``remat`` recomputes each layer in the backward pass."""
     pos = sinusoid_pos(torch.arange(frames.shape[1], device=frames.device),
                        cfg.d_model)
     x = frames + pos[None].to(frames.dtype)
+
+    def layer(x, i):
+        return encoder_block(cfg, _layer(params["enc_layers"], i, x.dtype), x)
+
+    layer = _rematted(layer, remat)
     for i in range(cfg.num_enc_layers):
-        x = encoder_block(cfg, _layer(params["enc_layers"], i, x.dtype), x)
+        x = layer(x, i)
     return L.norm_apply(cfg, params["enc_norm"], x)
 
 
 def _inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             img_embeds: Optional[torch.Tensor],
-            audio_frames: Optional[torch.Tensor]):
+            audio_frames: Optional[torch.Tensor], remat: bool = False):
     """The trunk's input (B, S_tot, D) and the encoder's output (or None):
     token embeddings behind the projected image prefix (vlm), plus
     sinusoid positions under an encoder (audio)."""
@@ -268,7 +287,7 @@ def _inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         if audio_frames is None:
             raise ValueError(f"{cfg.name} takes audio_frames (B, enc_seq, "
                              f"{cfg.d_model})")
-        enc_out = encode(cfg, params, audio_frames)
+        enc_out = encode(cfg, params, audio_frames, remat=remat)
         x = x + sinusoid_pos(torch.arange(x.shape[1], device=x.device),
                              cfg.d_model)[None].to(x.dtype)
     return x, enc_out
@@ -277,16 +296,36 @@ def _inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             img_embeds: Optional[torch.Tensor] = None,
             audio_frames: Optional[torch.Tensor] = None,
-            window: Optional[int] = None
+            window: Optional[int] = None,
+            remat: bool = False,
+            remat_policy: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (no cache): tokens (B, S) -> (hidden (B,
-    S_tot, D), the summed MoE aux loss); S_tot counts the image prefix."""
-    x, enc_out = _inputs(cfg, params, tokens, img_embeds, audio_frames)
+    S_tot, D), the summed MoE aux loss); S_tot counts the image prefix.
+
+    ``remat`` (training) keeps no layer's activations for the backward
+    pass: each decoder and encoder layer runs under
+    ``torch.utils.checkpoint`` and is recomputed there, so the gradients
+    are those without it.  The reference's ``remat_policy`` ("dots",
+    "dots_no_batch") serves only its multi-device dry run, which the port
+    does not have yet: any policy raises ``NotImplementedError``."""
+    if remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={remat_policy!r}: the reference uses it only in "
+            f"its multi-device dry run (ROADMAP queue 1, item 3), not "
+            f"ported yet")
+    x, enc_out = _inputs(cfg, params, tokens, img_embeds, audio_frames,
+                         remat=remat)
     q_pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def layer(x, i):
+        return decoder_block(cfg, _layer(params["layers"], i, x.dtype), x,
+                             q_pos=q_pos, window=window, enc_out=enc_out)
+
+    layer = _rematted(layer, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x, a = decoder_block(cfg, _layer(params["layers"], i, x.dtype), x,
-                             q_pos=q_pos, window=window, enc_out=enc_out)
+        x, a = layer(x, i)
         aux = aux + a
     return L.norm_apply(cfg, params["final_norm"], x), aux
 

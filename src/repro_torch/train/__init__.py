@@ -1,1 +1,1 @@
-"""Step factories of the serving path (the train step is not ported yet)."""
+"""Step factories: the LLM train step and the serving path's closures."""

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import repro_torch.system as P
-from repro_torch.configs import get_config
+from repro_torch.configs import ASSIGNED, get_config
 from repro_torch.core.thresholds import ThresholdState
 from repro_torch.kernels import calibrate as C
 from repro_torch.kernels import flash_attention as FA
@@ -631,3 +631,62 @@ def test_family_draws_on_the_card(cuda):
     params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
     assert all(t.device.type == "cuda" for _, t in M.leaves(params))
     assert float(params["layers"]["ssm"]["a_log"].min()) >= 0.0
+
+
+#: the LLM train step on the card against the host: f32 on both, sums in
+#: another order (``chip_smoke.LLM_LOSS_ATOL``/``LLM_GNORM_RTOL``); a
+#: MoE's router near-tie may send a token to another expert
+#: (``chip_smoke.LLM_MOE_LOSS_ATOL``)
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_MOE_LOSS_ATOL = 1e-2
+
+
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_train_step_on_card_matches_host(cuda, arch):
+    """One launcher step of each reduced config, from the same weights
+    and batch: loss (and grad_norm, but for the MoEs) within the bounds
+    above, every metric on the card, the parameters moved."""
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import adamw as A
+    from repro_torch.train import steps as ST
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = next(LT.batches(cfg, 2, 32, "cpu"))
+    step = LT.make_step(cfg, lr=1e-3, steps=10)
+
+    def run(dev):
+        p = M.tree_map(lambda t: t.to(dev), params)
+        state = ST.TrainState(p, A.init(p), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+        return step(state, {k: v.to(dev) for k, v in batch.items()})
+
+    new, got = run(cuda)
+    _, want = run("cpu")
+    assert all(v.device.type == "cuda" for v in got.values())
+    atol = TRAIN_MOE_LOSS_ATOL if cfg.is_moe else TRAIN_LOSS_ATOL
+    assert abs(float(got["loss"]) - float(want["loss"])) <= atol
+    if not cfg.is_moe:
+        gn = float(want["grad_norm"])
+        assert abs(float(got["grad_norm"]) - gn) <= TRAIN_GNORM_RTOL * gn
+    assert int(new.step) == 1
+    assert max(float((a.cpu() - b).abs().max()) for (_, a), (_, b) in
+               zip(M.leaves(new.params), M.leaves(params))) > 0
+
+
+def test_flash_refuses_a_gradient_on_the_card(cuda):
+    """The kernel writes its output through a raw pointer, so it refuses
+    a forward that autograd would differentiate, before any launch;
+    under ``no_grad`` it launches as before."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 64, 64), generator=g, device=cuda)
+               for _ in range(3))
+    FA.LAUNCHES = 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v, device=cuda)
+    assert FA.LAUNCHES == 0
+    with torch.no_grad():
+        out = FA.flash_attention(q, k, v)
+    assert FA.LAUNCHES == 1 and not out.requires_grad

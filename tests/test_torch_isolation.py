@@ -82,6 +82,11 @@ def test_running_the_port_loads_no_jax():
         "w = build_workload(num_cameras=2, num_edges=1, duration_s=5.0, "
         "finetune_steps=2, device='cpu')\n"
         "assert w.items and w.edge_accuracy == w.edge_accuracy\n"
+        "from repro_torch import serve_demo\n"
+        "from repro_torch.launch import train\n"
+        "assert serve_demo.main(['--device', 'cpu']) == 0\n"
+        "assert train.main(['--reduced', '--steps', '2', '--batch', '2', "
+        "'--seq', '16', '--device', 'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
