@@ -166,18 +166,41 @@ Phases, each fatal on failure:
    the stream pre-loaded and the kernel's ms over the floor, the bound
    from the bytes and operations of the timed inputs, and the one
    PyTorch call that computes the same function, where there is one),
-   then, last, ``{"ok": true, "device": {...}}``.
+   then, last, ``{"ok": true, "device": {...}}``;
+15. multi-device (``multi_device_phase``, run before 14's timing so that
+   its launches join the kernels line): the full-fleet ``metropolis`` with
+   its row axis in ``FLEET_SHARDS`` shards on cuda:0 — the report equal to
+   phase 7's unsharded run but for the launch count, superstep launches =
+   ``FLEET_SHARDS`` x supersteps — and ``_superstep_fn(cap, n)`` on the cap
+   slab bit-identical for every n of ``SHARD_COUNTS``; full-width
+   ``LLM_ARCH`` on a (1, 1) device mesh over a one-rank NCCL group:
+   ``MESH_STEPS`` train steps with DTensor parameters and AdamW state
+   placed by the train rules and ``ActCtx`` within ``MESH_RTOL`` of the
+   same steps without a mesh (step ms of both printed),
+   ``remat_policy="dots"`` for ``REMAT_STEPS`` steps (the same losses, its
+   peak memory against remat alone), one ``MESH_PROMPT``-token prefill and
+   ``MESH_NEW`` greedy decode steps under the serve rules with flash on
+   the local heads (the plain path's tokens); then the production-shape
+   dry-runs of ``DRYRUN_CALLS``, each a process started after the build
+   that runs beside phases 3-14 on fake tensors in a fake process group
+   of 256 or 512 ranks: chips, per-device peak bytes against the card's
+   memory, per-device FLOPs and collective bytes by kind printed, each
+   call failing the script unless it wrote its record by
+   ``DRYRUN_DEADLINE_S``.
 
 Exits non-zero, printing no result, where torch finds no CUDA device or
 the port's sources are not beside this script.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -433,6 +456,34 @@ LLM_GNORM_RTOL = 1e-4
 #: the MoEs' loss, card against host: a router near-tie that falls the
 #: other way sends one token to another expert (as ``MOE_LOGIT_ATOL``)
 LLM_MOE_LOSS_ATOL = 1e-2
+#: phase 15, multi-device: the full-fleet metropolis with its row axis
+#: in ``FLEET_SHARDS`` shards on cuda:0, and the superstep program at the
+#: cap slab over each of ``SHARD_COUNTS`` shards
+FLEET_SHARDS = 4
+SHARD_COUNTS = (1, 2, 4, 8)
+#: full-width ``LLM_ARCH`` on a (1, 1) device mesh over a one-rank NCCL
+#: group: ``MESH_STEPS`` train steps of ``LLM_BATCH`` x ``LLM_SEQ``
+#: tokens against the same steps without a mesh (loss and grad_norm
+#: relative: the same local operations, so bit for bit is expected),
+#: ``REMAT_STEPS`` steps under ``remat_policy="dots"`` against remat
+#: alone, and one ``MESH_PROMPT``-token prefill and ``MESH_NEW`` greedy
+#: decode steps under the serve rules (flash attention on the local
+#: heads) against the plain path
+MESH_STEPS, REMAT_STEPS = 5, 2
+MESH_RTOL = 1e-5
+MESH_PROMPT, MESH_NEW = 1024, 16
+#: the production-shape dry-runs (``launch/dryrun.py``), each a process
+#: of its own started after the build and read in phase 15: the
+#: reference test's three calls and qwen3-8b's train step
+DRYRUN_CALLS = [
+    ("qwen1.5-0.5b", "long_500k", "single", ()),
+    ("qwen1.5-0.5b", "long_500k", "multi", ()),
+    ("qwen1.5-0.5b", "decode_32k", "single", ("--kv-dtype", "int8",
+                                              "--serve-1d")),
+    ("qwen3-8b", "train_4k", "single", ()),
+]
+#: seconds from the script's start by which every dry-run must be done
+DRYRUN_DEADLINE_S = 1050.0
 
 
 def fail(msg: str) -> None:
@@ -1990,8 +2041,8 @@ class MoeTap:
         torch, L, inner = self.torch, self.L, self.L.moe_apply
         self.inner = inner
 
-        def tapped(cfg, p, x):
-            y, aux = inner(cfg, p, x)
+        def tapped(cfg, p, x, **kw):
+            y, aux = inner(cfg, p, x, **kw)
             if cfg.name == self.name and x.shape[1] > 1:
                 probs = torch.softmax(torch.einsum(
                     "bsd,de->bse", x.float(), p["router"].float()), -1)
@@ -2650,8 +2701,6 @@ def llm_training_phase(torch, dev, zero_counts, read_counts) -> dict:
     step on the card against the host (``LLM_LOSS_ATOL``,
     ``LLM_GNORM_RTOL``; ``LLM_MOE_LOSS_ATOL`` for the MoEs), the
     parameters moved; and flash refusing a gradient on the card."""
-    import tempfile
-
     import numpy as np
     from repro_torch.checkpoint import checkpoint as CK
     from repro_torch.configs import ASSIGNED, get_config
@@ -2838,6 +2887,314 @@ def llm_training_phase(torch, dev, zero_counts, read_counts) -> dict:
             "phase_s": phase_s}
 
 
+def start_dryruns(out: Path) -> list:
+    """Start every ``DRYRUN_CALLS`` call, a process of its own on one CPU
+    thread, its record under ``out``/<n> and its output in ``out``/<n>.log:
+    [(call, process, log path, record dir)]."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    runs = []
+    for i, (arch, shape, mesh, extra) in enumerate(DRYRUN_CALLS):
+        rec_dir, log = out / str(i), out / f"{i}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--out", str(rec_dir), *extra],
+                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        runs.append(((arch, shape, mesh, extra), proc, log, rec_dir))
+    return runs
+
+
+def stop_dryruns(runs: list, out: Path) -> None:
+    """Kill any dry-run still running and remove their directory (at
+    exit, whatever the script's outcome)."""
+    for _, proc, _, _ in runs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def finish_dryruns(runs: list, t_all: float) -> list:
+    """Wait for the dry-runs (until ``DRYRUN_DEADLINE_S`` into the
+    script), fail on any that did not end with its record, print each
+    record's numbers; returns the records."""
+    recs = []
+    for (arch, shape, mesh, extra), proc, log, rec_dir in runs:
+        left = DRYRUN_DEADLINE_S - (time.perf_counter() - t_all)
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"dry-run {arch} {shape} {mesh} still running "
+                 f"{DRYRUN_DEADLINE_S:.0f} s into the script")
+        text = log.read_text()
+        if rc != 0:
+            fail(f"dry-run {arch} {shape} {mesh} {' '.join(extra)} exited "
+                 f"{rc}:\n{text[-3000:]}")
+        files = list(rec_dir.glob("*.json"))
+        if len(files) != 1:
+            fail(f"dry-run {arch} {shape} {mesh} wrote {len(files)} records")
+        rec = json.loads(files[0].read_text())
+        coll = {k: v for k, v in rec["collectives"].items()
+                if isinstance(v, dict) and v.get("count")}
+        mem = rec["memory"]
+        print(f"dry-run {arch} {shape} {mesh} {' '.join(extra)}: chips "
+              f"{rec['chips']}, params {rec['params']}, window "
+              f"{rec['window']}, per-device peak "
+              f"{mem['peak_bytes'] / 1e9:.3f} GB of the card's "
+              f"{mem['card_bytes'] / 1e9:.1f} GB (fits {mem['fits']}), "
+              f"per-device FLOPs {rec['cost']['flops']:.4e}, collective "
+              f"bytes {rec['collectives']['total_bytes']:.4e} by kind "
+              f"{json.dumps(coll)}, run {rec['run_s']} s", flush=True)
+        want_chips = 512 if mesh == "multi" else 256
+        if rec["chips"] != want_chips or not mem["peak_bytes"] > 0 \
+                or not rec["cost"]["flops"] > 0:
+            fail(f"dry-run {arch} {shape} {mesh}: record {rec}")
+        if shape == "long_500k" and rec["window"] != 8192:
+            fail(f"dry-run {arch} long_500k window {rec['window']}")
+        if rec["device"] != "cuda":
+            fail(f"dry-run {arch} {shape} {mesh} ran on {rec['device']}")
+        recs.append(rec)
+    return recs
+
+
+def multi_device_phase(torch, SS, mrep, cap_args, zero_counts,
+                       read_counts) -> dict:
+    """Phase 15: the multi-device slice on the one card.
+
+    1. The full-fleet ``metropolis(duration_s=METRO_S)`` with its row axis
+       in ``FLEET_SHARDS`` shards on cuda:0: the report equal to the
+       unsharded run's (``mrep``, phase 7) but for the launch count,
+       superstep launches = ``FLEET_SHARDS`` x supersteps; and
+       ``_superstep_fn(cap, n)`` on the cap slab (``cap_args``)
+       bit-identical for every n of ``SHARD_COUNTS``.
+    2. Full-width ``LLM_ARCH`` on a (1, 1) ``DeviceMesh`` over a one-rank
+       NCCL group: ``MESH_STEPS`` train steps with DTensor parameters and
+       AdamW state placed by the train rules and ``ActCtx`` against the
+       same steps without a mesh (``MESH_RTOL``), step ms with and
+       without; ``REMAT_STEPS`` steps under ``remat_policy="dots"``
+       against remat alone, with their peak memory; one
+       ``MESH_PROMPT``-token prefill and ``MESH_NEW`` greedy decode steps
+       under the serve rules (flash attention on the local heads) against
+       the plain path's tokens.
+    Returns the numbers, and the recorder of the sharded run's superstep
+    launches."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import multihost
+    from repro_torch.launch import train as LT
+    from repro_torch.models import meta as M
+    from repro_torch.system import metropolis, run_query
+    from repro_torch.system.superstep import _superstep_fn
+    from repro_torch.train import steps as ST
+    out = {}
+
+    # 1. the fleet's row axis in shards on one card
+    msc = metropolis(duration_s=METRO_S, shard_fleet=FLEET_SHARDS)
+    with Recorder(SS, "superstep") as rec_shard:
+        zero_counts()
+        t0 = time.perf_counter()
+        srep = run_query(msc, device="cuda")
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        shard_counts = read_counts()
+    launch_keys = ("kernel_launches", "launches_per_tick")
+
+    def view(r):
+        return ({k: v for k, v in r.summary().items()
+                 if k not in launch_keys}, r.per_query_summary(),
+                r.accuracy_timeline(), r.thresholds, r.queries)
+    print(f"metropolis, fleet in {FLEET_SHARDS} row shards on cuda:0: "
+          f"{shard_s:.2f} s, {srep.n_items} items, supersteps "
+          f"{srep.supersteps}, superstep launches "
+          f"{shard_counts['superstep']}, slab shards "
+          f"{sorted(rec_shard.counts)}", flush=True)
+    if view(srep) != view(mrep):
+        fail("metropolis with its fleet in row shards differs from the "
+             "unsharded run")
+    if not 0 < shard_counts["superstep"] == FLEET_SHARDS * srep.supersteps \
+            == srep.summary()["kernel_launches"]:
+        fail(f"sharded metropolis: {shard_counts['superstep']} superstep "
+             f"launches for {srep.supersteps} supersteps x {FLEET_SHARDS}")
+    *cap_in, cap_kw = cap_args
+    outs = {}
+    for n in SHARD_COUNTS:
+        outs[n] = _superstep_fn(cap_kw["capacity"], n)(*cap_in)
+        for a, b, what in zip(outs[n], outs[1], ("routes", "slots", "ths")):
+            if not torch.equal(a, b):
+                fail(f"_superstep_fn over {n} shards differs in {what} from "
+                     f"one launch at {tuple(cap_in[0].shape)}")
+    S, R, N = cap_in[0].shape
+    k = R // FLEET_SHARDS           # the first shard's rows of each operand
+    conf, th0, mask, drain, gains = cap_in
+    shard_in = [conf[:, :k], th0[:k], mask[:, :k], drain[:k], gains]
+    shard_ms = device_ms(torch, lambda: SS.superstep(*shard_in, **cap_kw),
+                         100)
+    split_ms = device_ms(torch, lambda: _superstep_fn(
+        cap_kw["capacity"], FLEET_SHARDS)(*cap_in), 50)
+    one_ms = device_ms(torch, lambda: SS.superstep(*cap_in, **cap_kw), 100)
+    print(f"superstep cap slab {(S, R, N)}: bit-identical over "
+          f"{list(SHARD_COUNTS)} shards; one launch {one_ms:.5f} ms, a "
+          f"{(S, R // FLEET_SHARDS, N)} shard launch {shard_ms:.5f} ms, "
+          f"the {FLEET_SHARDS}-shard program {split_ms:.5f} ms", flush=True)
+    out["fleet"] = {"shards": FLEET_SHARDS, "cuda_s": shard_s,
+                    "supersteps": srep.supersteps,
+                    "superstep_launches": shard_counts["superstep"],
+                    "cap_slab": [S, R, N], "one_launch_ms": one_ms,
+                    "shard_launch_ms": shard_ms,
+                    "sharded_program_ms": split_ms,
+                    "bit_identical_shards": list(SHARD_COUNTS)}
+
+    # 2. the sharded train and serve path at full width on a (1, 1) mesh
+    cfg = get_config(LLM_ARCH)
+    dev = multihost.initialize(f"localhost:{LT.free_port()}", 1, 0,
+                               device="cuda")
+    try:
+        mesh = MESH.make_host_mesh("cuda")
+        ctx = SH.ActCtx(cfg, mesh)
+        runs = {}
+        for name, m, c in (("plain", None, None), ("mesh", mesh, ctx)):
+            state = LT.init_state(cfg, dev, m)
+            step = LT.make_step(cfg, lr=LLM_LR, steps=LLM_STEPS, ctx=c)
+            data = LT.batches(cfg, LLM_BATCH, LLM_SEQ, dev, m)
+            metrics, ms = [], []
+            zero_counts()
+            for _ in range(MESH_STEPS):
+                batch = next(data)
+                t0 = time.perf_counter()
+                state, mt = step(state, batch)
+                metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
+                ms.append(1e3 * (time.perf_counter() - t0))
+            if any(read_counts().values()):
+                fail(f"the {name} train steps launched a kernel")
+            if name == "mesh" and not SH.is_dtensor(state.params["embed"]):
+                fail("the mesh train step did not keep DTensor parameters")
+            runs[name] = (metrics, float(np.median(ms[1:])))
+            del state, step, data, batch
+            torch.cuda.empty_cache()
+        gaps = [max(abs(a - b) / abs(b) for a, b in zip(x, y))
+                for x, y in zip(runs["mesh"][0], runs["plain"][0])]
+        print(f"{LLM_ARCH} train on a (1, 1) mesh, {MESH_STEPS} steps of "
+              f"{LLM_BATCH} x {LLM_SEQ}: (loss, grad_norm) mesh "
+              f"{runs['mesh'][0]} plain {runs['plain'][0]}, largest "
+              f"relative gap {max(gaps):.3g}; step ms (median of steps 2-"
+              f"{MESH_STEPS}) mesh {runs['mesh'][1]:.1f} plain "
+              f"{runs['plain'][1]:.1f} (DTensor's dispatch "
+              f"{runs['mesh'][1] - runs['plain'][1]:.1f})", flush=True)
+        if not max(gaps) <= MESH_RTOL:
+            fail(f"the mesh train steps differ from the plain ones by "
+                 f"{max(gaps)} > {MESH_RTOL}")
+        out["train"] = {"steps": MESH_STEPS, "mesh": runs["mesh"][0],
+                        "plain": runs["plain"][0], "rel_gap": max(gaps),
+                        "mesh_step_ms": runs["mesh"][1],
+                        "plain_step_ms": runs["plain"][1]}
+
+        remat = {}
+        for policy in (None, "dots"):
+            state = LT.init_state(cfg, dev)
+            step = LT.make_step(cfg, lr=LLM_LR, steps=LLM_STEPS,
+                                remat_policy=policy)
+            data = LT.batches(cfg, LLM_BATCH, LLM_SEQ, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            losses = []
+            for _ in range(REMAT_STEPS):
+                state, mt = step(state, next(data))
+                losses.append(float(mt["loss"]))
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            remat[policy or "remat"] = (losses, peak)
+            del state, step, data
+            torch.cuda.empty_cache()
+        rgap = max(abs(a - b) / abs(b) for a, b in
+                   zip(remat["dots"][0], remat["remat"][0]))
+        print(f"remat_policy='dots' against remat alone, {REMAT_STEPS} "
+              f"steps: losses {remat['dots'][0]} vs {remat['remat'][0]} "
+              f"(relative gap {rgap:.3g}); peak memory over the state "
+              f"{remat['dots'][1]:.2f} GB vs {remat['remat'][1]:.2f} GB",
+              flush=True)
+        if not rgap <= MESH_RTOL:
+            fail(f"remat_policy='dots' moved the loss by {rgap}")
+        out["remat_dots"] = {"losses": remat["dots"][0],
+                             "remat_losses": remat["remat"][0],
+                             "peak_gb": remat["dots"][1],
+                             "remat_peak_gb": remat["remat"][1]}
+
+        fcfg = dataclasses.replace(cfg, attn_impl="flash")
+        params = M.init_params(fcfg, torch.Generator(device=dev)
+                               .manual_seed(0))
+        prompt = torch.from_numpy(np.random.default_rng(15).integers(
+            0, cfg.vocab_size, (1, MESH_PROMPT)).astype(np.int32)).to(dev)
+        serve = {}
+        for name, c in (("plain", None), ("mesh", SH.ActCtx(fcfg, mesh))):
+            p = params if c is None else SH.distribute_tree(
+                params, SH.param_shardings(fcfg, mesh, "serve"))
+            toks = prompt if c is None else SH.distribute(
+                prompt, SH.batch_specs(fcfg, mesh, 1,
+                                       {"t": prompt})["t"])
+            prefill = ST.make_prefill_step(
+                fcfg, cache_len=MESH_PROMPT + MESH_NEW, ctx=c)
+            decode = ST.make_decode_step(fcfg, ctx=c)
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(p, {"tokens": toks})
+            got, margins, first = [], [], None
+            for _ in range(MESH_NEW):
+                full = logits.full_tensor() if SH.is_dtensor(logits) \
+                    else logits
+                if first is None:
+                    first = full.float().cpu()
+                top = torch.topk(full[0].float(), 2).values
+                margins.append(float(top[0] - top[1]))
+                tok = torch.argmax(full, dim=-1).to(torch.int32)
+                got.append(int(tok[0]))
+                if c is not None:
+                    tok = SH.distribute(tok, SH.batch_specs(
+                        fcfg, mesh, 1, {"t": tok})["t"])
+                logits, cache = decode(p, cache, tok)
+            torch.cuda.synchronize()
+            serve[name] = (got, margins, first,
+                           time.perf_counter() - t0,
+                           read_counts()["flash_attention"])
+            del cache, logits
+        flips = same_tokens(f"{LLM_ARCH} serve on the mesh",
+                            serve["mesh"][0], serve["plain"][0],
+                            serve["plain"][1])
+        lgap = float((serve["mesh"][2] - serve["plain"][2]).abs().max())
+        print(f"{LLM_ARCH} serve on a (1, 1) mesh under the serve rules "
+              f"(flash on the local heads): a {MESH_PROMPT}-token prefill "
+              f"and {MESH_NEW} decode steps, tokens "
+              f"{'equal to' if not flips else 'near-tie flips from'} the "
+              f"plain path's ({serve['mesh'][0][:6]}...), prefill logits "
+              f"within {lgap:.3g}; flash launches mesh {serve['mesh'][4]} "
+              f"plain {serve['plain'][4]}; {serve['mesh'][3]:.2f} s vs "
+              f"{serve['plain'][3]:.2f} s", flush=True)
+        if not lgap <= LOGIT_ATOL:
+            fail(f"mesh prefill logits differ by {lgap} > {LOGIT_ATOL}")
+        if serve["mesh"][4] != cfg.num_layers or \
+                serve["plain"][4] != cfg.num_layers:
+            fail(f"flash launches {serve['mesh'][4]} (mesh) and "
+                 f"{serve['plain'][4]} (plain), want {cfg.num_layers} each")
+        out["serve"] = {"tokens": serve["mesh"][0], "flips": flips,
+                        "prefill_logit_gap": lgap,
+                        "flash_launches": serve["mesh"][4],
+                        "plain_flash_launches": serve["plain"][4],
+                        "mesh_s": serve["mesh"][3],
+                        "plain_s": serve["plain"][3]}
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["superstep_recorder"] = rec_shard
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -2888,6 +3245,11 @@ def main() -> None:
     for name, info in sorted(built.items()):
         print(f"-- {name}: {info['path']}\n{info['log'].strip()}")
         runtime.library(name)
+    # the production-shape dry-runs work on the host's cores beside the
+    # card's phases; phase 15 reads them
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dryruns = start_dryruns(dry_dir)
+    atexit.register(stop_dryruns, dryruns, dry_dir)
 
     phase("kernels vs plain versions")
     check_triage(torch, T, ops, dev)
@@ -3264,6 +3626,15 @@ def main() -> None:
         fail("TF32 matmuls are on: they would move the losses")
     llm = llm_training_phase(torch, dev, zero_counts, read_counts)
 
+    phase(f"multi-device (15): metropolis with its fleet in {FLEET_SHARDS} "
+          f"row shards; full-width {LLM_ARCH} train and serve on a (1, 1) "
+          f"device mesh; the production-shape dry-runs")
+    multi = multi_device_phase(
+        torch, SS, mrep, max(ss_full.calls, key=lambda a: a[0].numel()),
+        zero_counts, read_counts)
+    ss_shard = multi.pop("superstep_recorder")
+    multi["dryruns"] = finish_dryruns(dryruns, t_all)
+
     phase("timing on the main paths' inputs")
     # the card's launch floor: triage.cu's empty kernel, the same build,
     # hold and reps as the kernels it is read against
@@ -3341,11 +3712,12 @@ def main() -> None:
     # timed with its launches, the largest (the cap slab where the run
     # reaches it) the row's
     ss_calls = (ss_full.calls + ss_smoke.calls
-                + list(ss_k1.inputs.values()))
+                + list(ss_k1.inputs.values())
+                + list(ss_shard.inputs.values()))
     for args in ss_calls:
         same_superstep(torch, SS, args)
     ss_inputs, ss_counts = {}, {}
-    for rec in (ss_full, ss_smoke, ss_k1):
+    for rec in (ss_full, ss_smoke, ss_k1, ss_shard):
         for shape, n in rec.counts.items():
             ss_inputs.setdefault(shape, rec.inputs[shape])
             ss_counts[shape] = ss_counts.get(shape, 0) + n
@@ -3601,7 +3973,11 @@ def main() -> None:
         if row["launches"] != want:
             fail(f"the recorder saw {row['launches']} flash calls on "
                  f"{name}, the counters {want}")
-    fl_paths = {"serving_24_layers_flash":
+    fl_paths = {"multi_device_serve_24_layers_mesh":
+                multi["serve"]["flash_launches"],
+                "multi_device_serve_24_layers_plain":
+                multi["serve"]["plain_flash_launches"],
+                "serving_24_layers_flash":
                 serving["flash_24"]["flash_launches"],
                 "serving_24_layers_chunked":
                 serving["chunked_24"]["flash_launches"],
@@ -3627,7 +4003,9 @@ def main() -> None:
                 llm["launches"]["flash_attention"]}
     ss_paths = {"metropolis": metro_counts["superstep"],
                 "metropolis_smoke": smoke_counts["superstep"],
-                "metropolis_smoke_superstep1": k1_counts["superstep"]}
+                "metropolis_smoke_superstep1": k1_counts["superstep"],
+                f"metropolis_fleet_in_{FLEET_SHARDS}_shards":
+                multi["fleet"]["superstep_launches"]}
     a_paths = {n: t["associate_launches"] for n, t in track.items()}
     if a_shapes["run"]["launches"] != sum(a_paths.values()):
         fail(f"the recorders saw {a_shapes['run']['launches']} associate "
@@ -3677,7 +4055,8 @@ def main() -> None:
          "max_abs_err": 0.0, "ms": ss_ms, "plain_ms": ss_plain,
          "bound_ms": ss_bound, "bound_by": ss_by, "library_ms": None,
          "metropolis_runs": ss_shapes["run"],
-         "slab_shapes": ss_shapes["shapes"]},
+         "slab_shapes": ss_shapes["shapes"],
+         "fleet_shards": multi["fleet"]},
         {"name": "associate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/associate.cu",
          "replaces": "src/repro/kernels/similarity.py:104",
@@ -3743,7 +4122,8 @@ def main() -> None:
         "dense_family": dense,
         "families": families,
         "training": training,
-        "llm_training": llm},
+        "llm_training": llm,
+        "multi_device": multi},
         "total_s": time.perf_counter() - t_all}))
     for row in kernels:
         row["over_floor_ms"] = row["ms"] - floor_ms

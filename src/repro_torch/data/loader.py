@@ -3,10 +3,9 @@
 Each process materializes only its shard of the global batch: the global
 batch of B sequences splits over ``num_hosts`` processes, and
 ``host_batches`` builds the ``host_id``-th block in numpy, the
-reference's arrays bit for bit.  ``to_device`` then puts a block on the
-process's card (one process, one card; the ``torch.distributed``
-analogue of the reference's ``global_shard`` waits for the multi-device
-slice).  Synthetic-but-learnable streams (affine next-token rule + noise)
+reference's arrays bit for bit.  ``to_device`` puts a block on the
+process's card; ``global_shard`` makes it this rank's part of the
+global batch on a mesh (one process, one card).  Synthetic-but-learnable streams (affine next-token rule + noise)
 keep loss curves meaningful without external data.
 """
 from __future__ import annotations
@@ -65,6 +64,29 @@ def host_batches(cfg: ModelConfig, lc: LoaderConfig, *,
                 0, 0.1, (per_host, cfg.enc_seq, cfg.d_model)).astype(np.float32)
         yield batch
         step += 1
+
+
+def global_shard(batch: Dict[str, np.ndarray], shardings, device
+                 ) -> Dict[str, torch.Tensor]:
+    """Each rank's host block as its part of the global batch.
+
+    ``shardings`` is one ``distributed.sharding.NamedSharding`` or a dict
+    of them by key (``batch_specs``).  Under an initialized process group
+    every leaf becomes the DTensor whose local shard is this rank's block
+    (``DTensor.from_local`` with the batch placement; no collective):
+    ranks at one coordinate of the data axes pass the same block, which
+    ``host_batches(host_id=that coordinate, num_hosts=data_size)`` gives.
+    With no process group (one process) it is a plain ``to_device``."""
+    import torch.distributed as dist
+    local = to_device(batch, device)
+    if not dist.is_initialized():
+        return local
+    from repro_torch.distributed.sharding import from_local
+    out = {}
+    for k, v in local.items():
+        sh = shardings[k] if isinstance(shardings, dict) else shardings
+        out[k] = from_local(v, sh, sh.global_shape(v.shape))
+    return out
 
 
 def to_device(batch: Dict[str, np.ndarray],

@@ -10,8 +10,8 @@ shape (L, out), so indexing ``params["layers"]`` by layer slices both
 halves to an unstacked leaf.  ``transformer.maybe_dequant`` dequantizes
 one layer's slice at a time inside the layer loop, so only one layer's
 weights are ever resident in bf16.  ``abstract_quantized`` and
-``quantized_shardings`` (shape-only trees and mesh shardings for the
-dry-run launcher) come with the multi-device slice of the port.
+``quantized_shardings`` are the dry-run's shape-only tree and shardings
+of that layout.
 
 Wire: per-query CQ weights and recalibrated Platt heads ship
 int8-quantized over the query pipeline's WAN downlink
@@ -80,6 +80,32 @@ def dequant_tree(params: Any, dtype: torch.dtype = torch.bfloat16) -> Any:
     if isinstance(params, dict):
         return {k: dequant_tree(v, dtype) for k, v in params.items()}
     return params
+
+def abstract_quantized(params_abs: M.Tree, cfg: ModelConfig) -> M.Tree:
+    """The quantized layout of a shape-only parameter tree (``meta`` or
+    fake tensors): int8 ``q`` of the leaf's shape beside f32 scales (out,)
+    or, stacked, (L, out)."""
+    def f(pm, leaf):
+        if not _quantizable(pm):
+            return leaf
+        stacked = pm.axes[0] == M.STACK
+        s = ((leaf.shape[0],) if stacked else ()) + (leaf.shape[-1],)
+        return {"q": torch.empty(leaf.shape, dtype=torch.int8,
+                                 device=leaf.device),
+                "s": torch.empty(s, dtype=torch.float32, device=leaf.device)}
+    return M.tree_map(f, M.model_meta(cfg), params_abs)
+
+
+def quantized_shardings(pshard: M.Tree, params_abs: M.Tree,
+                        cfg: ModelConfig, mesh) -> M.Tree:
+    """Sharding tree matching ``abstract_quantized``: int8 values keep the
+    original leaf's sharding; the small scale tensors are replicated."""
+    from repro_torch.distributed.sharding import NamedSharding
+
+    repl = NamedSharding(mesh, ())
+    return M.tree_map(lambda pm, sh: {"q": sh, "s": repl}
+                      if _quantizable(pm) else sh, M.model_meta(cfg), pshard)
+
 
 #: framing per shipped tensor: dtype tag, ndim/shape, channel count
 WIRE_HEADER_NBYTES = 16

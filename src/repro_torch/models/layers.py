@@ -24,19 +24,23 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
 
 
-def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` over operands promoted to one dtype, as ``jnp``
-    promotes mixed operands."""
-    dt = ops[0].dtype
-    for t in ops[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return torch.einsum(eq, *(t.to(dt) for t in ops))
+def einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of an activation ``x`` and a weight ``w``, both
+    promoted to one dtype, as ``jnp`` promotes mixed operands; on a
+    device mesh (DTensor operands) a tensor-parallel product on each
+    rank's shards (``sharding.local_einsum``)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
+    if SH.is_dtensor(x) or SH.is_dtensor(w):
+        return SH.local_einsum(eq, x, w)
+    return torch.einsum(eq, x, w)
 
 
 def norm_apply(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -145,7 +149,10 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     window over its own K/V (Sq == Sk, positions 0..S-1: a prefill) is one
     launch of the flash-attention kernel, exactly the reference's
     condition; like the reference's, that branch does not apply
-    ``cfg.logit_softcap``.  Otherwise queries run in chunks of at most
+    ``cfg.logit_softcap``.  DTensor q/k/v (on a device mesh) run on each
+    shard's own rows and heads (``sharding.on_local_heads``): attention
+    is head-local, so that is exact, and a flash launch takes the local
+    heads.  Otherwise queries run in chunks of at most
     ``chunk`` (the largest divisor of Sq not above it, or one block where
     that is 1), so the score matrix is rarely Sq x Sk at once.  The
     chunked products accumulate in f32 for a multi-token pass; a decode
@@ -158,12 +165,15 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / math.sqrt(hd)
     if cfg.attn_impl not in ("chunked", "flash"):
         raise NotImplementedError(f"{cfg.name}: attn_impl {cfg.attn_impl!r}")
+    if SH.is_dtensor(q):
+        return SH.on_local_heads(
+            lambda q, k, v, qp, kp: attention(cfg, q, k, v, qp, kp,
+                                              causal=causal, window=window,
+                                              chunk=chunk),
+            q, k, v, q_pos, k_pos)
     if (cfg.attn_impl == "flash" and Sq > 1 and causal and window is None
             and Sq == Sk):
-        o = KOPS.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal=True,
-                                 device=q.device)
-        return o.transpose(1, 2)
+        return _flash(q, k, v)
     if q_pos.ndim == 1:
         q_pos = q_pos[None].expand(B, Sq)
     if k_pos.ndim == 1:
@@ -194,6 +204,15 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             return block(q, q_pos)
     return torch.cat([block(q[:, i:i + chunk], q_pos[:, i:i + chunk])
                       for i in range(0, Sq, chunk)], dim=1)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+           ) -> torch.Tensor:
+    """One flash-attention launch on (B, S, H, hd) q and (B, S, KV, hd)
+    k/v, causal, in the model's layout."""
+    o = KOPS.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=True, device=q.device)
+    return o.transpose(1, 2)
 
 
 def attn_out(p, o: torch.Tensor) -> torch.Tensor:
@@ -242,7 +261,7 @@ def moe_capacity(cfg: ModelConfig, S: int) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), the Switch load-balance aux loss).
 
@@ -255,7 +274,10 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
     off); the activations are gathered once at the slots, the experts run
     as one grouped product, and the combine is a weighted scatter-add
     from the slots (the sentinel token S lands in a spare row).  On the
-    card that scatter-add's order is not fixed."""
+    card that scatter-add's order is not fixed.  ``ctx`` constrains the
+    (B, E, cap, D) expert buffers ("moe_buf") before and after the
+    experts, where the reference does."""
+    c = ctx if ctx is not None else (lambda a, name: a)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     TK = S * K
@@ -291,12 +313,12 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor
     valid = (slot_token < S)[..., None]
     eb = torch.gather(x, 1, torch.clamp(slot_token, max=S - 1)[..., None]
                       .expand(B, E * cap, D))
-    eb = torch.where(valid, eb, 0).reshape(B, E, cap, D)
+    eb = c(torch.where(valid, eb, 0).reshape(B, E, cap, D), "moe_buf")
     h = einsum("becd,edf->becf", eb, p["wi"])
     g = einsum("becd,edf->becf", eb, p["wg"]) if cfg.mlp_act == "silu" \
         else None
-    ob = einsum("becf,efd->becd", _act(cfg, h, g), p["wo"]).reshape(
-        B, E * cap, D)
+    ob = c(einsum("becf,efd->becd", _act(cfg, h, g), p["wo"]),
+           "moe_buf").reshape(B, E * cap, D)
     contrib = (ob * slot_w[..., None]).to(x.dtype)
     y = torch.zeros((B, S + 1, D), dtype=x.dtype, device=dev).scatter_add(
         1, slot_token[..., None].expand(B, E * cap, D), contrib)[:, :S]

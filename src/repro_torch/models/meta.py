@@ -251,6 +251,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Tree:
                     _in_leaf_order(model_meta(cfg)))
 
 
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.float32,
+                    device="meta") -> Tree:
+    """The parameter tree as storage-free tensors of ``dtype`` on the
+    ``meta`` device (or, under a ``FakeTensorMode``, fake ones on
+    ``device``) — the dry-run's stand-in for ShapeDtypeStructs."""
+    return tree_map(lambda m: torch.empty(m.shape, dtype=dtype,
+                                          device=device), model_meta(cfg))
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Elements over every leaf of ``model_meta(cfg)``."""
+    return sum(math.prod(m.shape) for _, m in leaves(model_meta(cfg)))
+
+
 def _in_leaf_order(tree: Tree) -> Tree:
     """``tree`` rebuilt with sorted keys, so ``tree_map`` visits (and
     draws for) the leaves in ``leaves`` order."""

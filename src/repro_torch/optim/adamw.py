@@ -50,6 +50,16 @@ def init(params: Tree) -> AdamWState:
                       m=zeros, v=tree_map(torch.clone, zeros))
 
 
+def abstract_state(params: Tree) -> AdamWState:
+    """The state ``init`` would give, as storage-free f32 tensors on the
+    parameters' device (``meta``, or fake under a ``FakeTensorMode``)."""
+    z = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                       device=p.device), params)
+    device = next(leaves(params))[1].device
+    return AdamWState(count=torch.empty((), dtype=torch.int32, device=device),
+                      m=z, v=z)
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     sq = [torch.sum(torch.square(g.to(torch.float32)))
           for _, g in leaves(tree)]

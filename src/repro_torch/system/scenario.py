@@ -15,7 +15,7 @@ Beta distributions — no model in the loop, for tests/examples).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -171,9 +171,11 @@ class Scenario:
     # (system/superstep.py).  K=1 is the same semantics driven tick by tick:
     # the differential harness proves K=1 == K=N bit-exactly.
     superstep: Optional[int] = None
-    # shard the superstep's folded row axis across devices; the port
-    # accepts it and runs the one launch on one device
-    shard_fleet: bool = False
+    # shard the superstep's folded row axis: True splits it over every
+    # visible device of the run's type (one card, or the CPU: one shard),
+    # an int n into n row shards round-robin over them (shards may share
+    # a device); each shard is one superstep launch (system/superstep.py)
+    shard_fleet: Union[bool, int] = False
     # accumulate the report in streaming windowed aggregates of this width
     # instead of O(items) per-item arrays (system/metrics.py); None keeps
     # the exact per-item arrays
@@ -198,6 +200,12 @@ class Scenario:
                 raise ValueError(
                     f"scenario {self.name!r}: fixed beta={b} must satisfy "
                     f"0 <= beta < 0.5 (Eq. 9 range)")
+        if not isinstance(self.shard_fleet, (bool, int)) or (
+                not isinstance(self.shard_fleet, bool)
+                and self.shard_fleet < 1):
+            raise ValueError(
+                f"scenario {self.name!r}: shard_fleet={self.shard_fleet!r} "
+                f"must be a bool or a shard count >= 1")
         if self.update_period_s is not None and self.update_period_s <= 0:
             raise ValueError(
                 f"scenario {self.name!r}: update_period_s="
@@ -627,7 +635,7 @@ def metropolis(num_cameras: int = 10240, num_edges: int = 1024,
     The floors are pinned like ``city_scale``'s: >= 1024 edges, and at
     least one camera per edge.  Runs with ``superstep=128`` (boundary-free
     tick runs fuse into ONE superstep kernel launch each),
-    ``shard_fleet=True`` (accepted; one launch on one device), and
+    ``shard_fleet=True`` (the row axis splits over every visible card), and
     streaming windowed report aggregates (``metrics_window_s``) so report
     memory is O(windows), not O(items).
 

@@ -25,7 +25,8 @@ Axes: S = ticks in the run (<= scenario.superstep), R = |union of
 (Q, E) grid is ~99.8% empty per tick at metropolis scale, so the slab
 is packed over active keys, not the dense grid.  R is the axis
 ``distributed.sharding.fleet_specs`` shards across devices (rows are
-mutually independent; the kernel runs shard-local with no collectives).
+mutually independent; each shard's launch runs on its own rows with no
+collective, and the outputs are concatenated).
 
 Correctness contract (the differential harness in
 ``tests/test_superstep.py`` enforces all of it bit-exactly):
@@ -50,20 +51,25 @@ Correctness contract (the differential harness in
   exact), so splitting a run at any point does not change the trajectory.
 
 The launch goes to the pipeline's ``device``: the CUDA kernel on the card,
-its plain PyTorch version on the CPU.
+its plain PyTorch version on the CPU.  Under ``Scenario.shard_fleet`` the
+driver splits the row axis over ``launch.mesh.make_fleet_mesh``: one
+launch a shard, each on its shard's device.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import functools
 import time
 from typing import Dict, FrozenSet, List, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import can_shard_fleet, fleet_specs
 from repro_torch.kernels import superstep as _ss
 from repro_torch.kernels.buckets import MAX_SUPERSTEP_ELEMS, bucket
+from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.serving.simulator import Item
 from repro_torch.system.feedback import calibrate_row
 
@@ -89,6 +95,50 @@ class Ctrl:
     overloaded: FrozenSet[int]
 
 
+def _row_blocks(spec, t: torch.Tensor, n: int):
+    """``t`` split into ``n`` contiguous blocks along the dim ``spec``
+    names "fleet" (all of ``t`` ``n`` times where none does)."""
+    if "fleet" not in spec:
+        return [t] * n
+    return list(torch.chunk(t, n, dim=spec.index("fleet")))
+
+
+@functools.lru_cache(maxsize=None)
+def _superstep_fn(capacity: int, n_shards: int):
+    """The superstep program for a shard count: ``fn(conf, th0, mask,
+    drain, gains)`` on tensors of one device -> (routes, slots, ths) on
+    that device.
+
+    ``n_shards`` = 1 is one ``kernels.superstep.superstep`` launch.
+    Otherwise the row axis R splits into ``n_shards`` contiguous blocks as
+    ``fleet_specs`` lays them out, over ``make_fleet_mesh(n_shards)`` of
+    the inputs' device type: each block is one launch on its shard's
+    device, and the outputs come back concatenated.  Rows are
+    independent, so no collective is needed and the result is
+    bit-identical to one launch."""
+    sp = fleet_specs()
+    names = ("conf", "thresholds", "mask", "drain", "gains")
+
+    def fn(conf, th0, mask, drain, gains):
+        if n_shards == 1:
+            return _ss.superstep(conf, th0, mask, drain, gains,
+                                 capacity=capacity)
+        if conf.shape[1] % n_shards:
+            raise ValueError(f"superstep: {conf.shape[1]} rows do not "
+                             f"split into {n_shards} shards")
+        mesh = make_fleet_mesh(n_shards, device_type=conf.device.type)
+        blocks = [_row_blocks(sp[k], t, n_shards)
+                  for k, t in zip(names, (conf, th0, mask, drain, gains))]
+        outs = [_ss.superstep(*(b[i].to(dev) for b in blocks),
+                              capacity=capacity)
+                for i, dev in enumerate(mesh.devices)]
+        return tuple(torch.cat([o[j].to(conf.device) for o in outs],
+                               dim=sp[k].index("fleet"))
+                     for j, k in enumerate(("routes", "slots", "ths_out")))
+
+    return fn
+
+
 class SuperstepDriver:
     """Plans and executes scan-supersteps for one pipeline run.
 
@@ -98,7 +148,9 @@ class SuperstepDriver:
     K, at the next event boundary, or at the element cap — executes the
     fused program ONCE, and caches each covered tick's outputs; the
     following ticks of the run then pop their slice with no device work.
-    ``Scenario.shard_fleet`` is accepted and runs as the one launch.
+    Under ``Scenario.shard_fleet`` the launch splits over the fleet mesh's
+    ``n_shards`` row shards where the padded row bucket divides evenly
+    (else it stays one launch), and ``stage.launches`` counts each.
     """
 
     def __init__(self, pipe):
@@ -110,6 +162,12 @@ class SuperstepDriver:
                                           "surveiledge_fixed"))
         self.k = max(1, int(sc.superstep or 1))
         self.supersteps = 0
+        # the fleet mesh the row axis splits over (None: one launch)
+        self.mesh = None
+        if self.enabled and sc.shard_fleet:
+            self.mesh = make_fleet_mesh(
+                None if sc.shard_fleet is True else int(sc.shard_fleet),
+                device_type=pipe.device.type)
         self._plans: Dict[int, Tuple[TickOuts, TickThs]] = {}
 
     # --- per-tick entry point -------------------------------------------------
@@ -196,12 +254,14 @@ class SuperstepDriver:
         gains = np.asarray([proto.gamma1, g1u, proto.gamma2,
                             sc.interval_s], np.float32)
 
+        n_shards = self.mesh.size if (self.mesh is not None and
+                                      can_shard_fleet(self.mesh, Rb)) else 1
+        fn = _superstep_fn(sc.escalation_capacity, n_shards)
         dev = pipe.device
-        routes, slots, ths = (a.cpu().numpy() for a in _ss.superstep(
+        routes, slots, ths = (a.cpu().numpy() for a in fn(
             *(torch.from_numpy(a).to(dev)
-              for a in (conf, th0, mask, drain, gains)),
-            capacity=sc.escalation_capacity))
-        stage.launches += 1
+              for a in (conf, th0, mask, drain, gains))))
+        stage.launches += n_shards
         self.supersteps += 1
 
         # fold back into per-tick plans

@@ -5,6 +5,12 @@ classify closures the serving launcher calls.
 positions (plus the MoE's load-balance term), gradients by autograd,
 optional gradient accumulation over microbatches, then AdamW.  Nothing is
 jitted: a step is a plain call on the parameters' device.
+
+Every factory takes the reference's ``ctx``.  With a
+``distributed.sharding.ActCtx`` the parameters (and caches, and batches)
+are DTensors on its mesh: the step runs inside ``ctx.scope()``, where the
+plain tensors the model makes join DTensor operations as replicated, and
+the model applies ``ctx`` at the reference's constraint sites.
 """
 from __future__ import annotations
 
@@ -12,6 +18,9 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import (is_dtensor, like_rows, scope,
+                                             split_batch, splits_last,
+                                             take_last)
 from repro_torch.models import meta as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -28,13 +37,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token xent: logits (B, S, V), cast to f32, labels (B, S)
     integer."""
     lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(lse - ll)
+    idx = labels.long()[..., None]
+    if not splits_last(lf):
+        lse = torch.logsumexp(lf, dim=-1)
+        return torch.mean(lse - torch.gather(lf, -1, idx)[..., 0])
+    # vocabulary-sharded DTensor logits: logsumexp as its max-shifted sum,
+    # whose max and sum reduce (B, S) partials across the shards (the max
+    # a constant for autograd, as in logsumexp's own backward), where
+    # torch.logsumexp would gather the logits; the label logit gathered
+    # shard by shard (take_last), where torch.gather's backward would
+    # gather them too; every per-row term pinned to the logits' row
+    # layout (like_rows), so its gradient spreads back over the vocabulary
+    # with no collective
+    m = like_rows(torch.amax(lf, dim=-1, keepdim=True), lf).detach()
+    lse = m + torch.log(like_rows(torch.sum(torch.exp(lf - m), dim=-1,
+                                            keepdim=True), lf))
+    return torch.mean(lse - like_rows(take_last(lf, idx), lf))
 
 
 def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
-                 remat_policy: Optional[str] = None) -> Callable:
+                 remat_policy: Optional[str] = None, ctx=None) -> Callable:
     """(params, batch) -> (loss, {"lm_loss", "moe_aux"}).  ``batch``
     holds ``tokens`` and ``labels`` (B, S), plus ``img_embeds`` or
     ``audio_frames`` where the model takes them; the loss covers the text
@@ -44,10 +66,11 @@ def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
         h, aux = T.forward(cfg, params, batch["tokens"],
                            img_embeds=batch.get("img_embeds"),
                            audio_frames=batch.get("audio_frames"),
-                           remat=remat, remat_policy=remat_policy)
+                           remat=remat, remat_policy=remat_policy, ctx=ctx)
         if cfg.num_img_tokens > 0:          # loss only over text positions
             h = h[:, cfg.num_img_tokens:]
-        loss = cross_entropy(T.lm_logits(cfg, params, h), batch["labels"])
+        loss = cross_entropy(T.lm_logits(cfg, params, h, ctx=ctx),
+                             batch["labels"])
         if cfg.is_moe:
             loss = loss + cfg.router_aux_coef * aux
         return loss, {"lm_loss": loss, "moe_aux": aux}
@@ -67,17 +90,21 @@ def default_microbatches(cfg: ModelConfig, global_batch: int,
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
                     remat: bool = True, microbatches: int = 1,
-                    remat_policy: Optional[str] = None) -> Callable:
+                    remat_policy: Optional[str] = None,
+                    ctx=None) -> Callable:
     """(state, batch) -> (next state, metrics), the reference's step.
 
     Gradients come from ``torch.autograd.grad`` over a detached copy of
     the parameters (a leaf the loss does not reach, such as ``cls_head``,
     gets zeros).  ``microbatches > 1`` splits the batch along dim 0 into M
-    sequential microbatches, accumulates their gradients in f32 and
+    sequential microbatches (a DTensor batch by each shard's rows,
+    ``sharding.split_batch``), accumulates their gradients in f32 and
     divides the gradients, the loss and the aux loss by M.  Then
     ``adamw.apply``; the metrics are ``lm_loss``, ``moe_aux``,
-    ``grad_norm``, ``lr`` and ``loss``, and ``step`` goes up by one."""
-    loss_fn = make_loss_fn(cfg, remat=remat, remat_policy=remat_policy)
+    ``grad_norm``, ``lr`` and ``loss`` (plain tensors, reduced over the
+    mesh where the step ran on one), and ``step`` goes up by one."""
+    loss_fn = make_loss_fn(cfg, remat=remat, remat_policy=remat_policy,
+                           ctx=ctx)
 
     def grads_of(params, batch) -> Tuple[torch.Tensor, dict, M.Tree]:
         flat = []
@@ -96,6 +123,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
                 M.tree_map(grad, params))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with scope(ctx):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if microbatches == 1:
             loss, metrics, grads = grads_of(state.params, batch)
         else:
@@ -104,7 +135,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
                     raise ValueError(f"batch {name!r} of {leaf.shape[0]} "
                                      f"rows does not split into "
                                      f"{microbatches} microbatches")
-            micro = {k: v.chunk(microbatches) for k, v in batch.items()}
+            micro = {k: split_batch(v, microbatches)
+                     for k, v in batch.items()}
             grads = M.tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), state.params)
             loss = torch.zeros((), dtype=torch.float32,
@@ -123,40 +155,52 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
         new_params, new_opt, opt_metrics = adamw.apply(
             opt_cfg, grads, state.opt, state.params)
         metrics = dict(metrics, **opt_metrics, loss=loss)
-        return TrainState(new_params, new_opt, state.step + 1), metrics
+        return TrainState(new_params, new_opt, state.step + 1), {
+            k: v.full_tensor() if is_dtensor(v) else v
+            for k, v in metrics.items()}
 
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *,
-                      cache_len: Optional[int] = None) -> Callable:
+def make_prefill_step(cfg: ModelConfig, *, cache_len: Optional[int] = None,
+                      window: Optional[int] = None, ctx=None) -> Callable:
     """(params, {"tokens": (B, S)}, plus ``img_embeds`` or
     ``audio_frames`` where the model takes them) -> (logits (B, V),
-    cache)."""
+    cache); attention sees at most ``window`` positions back."""
     @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor]):
-        return T.prefill(cfg, params, batch["tokens"], cache_len=cache_len,
-                         img_embeds=batch.get("img_embeds"),
-                         audio_frames=batch.get("audio_frames"))
+        with scope(ctx):
+            return T.prefill(cfg, params, batch["tokens"],
+                             cache_len=cache_len,
+                             img_embeds=batch.get("img_embeds"),
+                             audio_frames=batch.get("audio_frames"),
+                             window=window, ctx=ctx)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig) -> Callable:
-    """(params, cache, token (B,)) -> (logits (B, V), cache)."""
+def make_decode_step(cfg: ModelConfig, *, window: Optional[int] = None,
+                     ctx=None) -> Callable:
+    """(params, cache, token (B,)) -> (logits (B, V), cache); attention
+    sees at most ``window`` positions back (a ring cache of that length
+    holds a long context)."""
     @torch.no_grad()
     def decode_step(params, cache, token):
-        return T.decode_step(cfg, params, cache, token)
+        with scope(ctx):
+            return T.decode_step(cfg, params, cache, token, window=window,
+                                 ctx=ctx)
     return decode_step
 
 
-def make_classify_fn(cfg: ModelConfig) -> Callable:
+def make_classify_fn(cfg: ModelConfig, ctx=None) -> Callable:
     """CQ-specific classifier forward (the cascade's edge model):
     (params, {"tokens": (B, S)}, plus ``img_embeds`` or ``audio_frames``
     where the model takes them) -> (B, num_query_classes) logits."""
     @torch.no_grad()
     def classify(params, batch: Dict[str, torch.Tensor]):
-        h, _ = T.forward(cfg, params, batch["tokens"],
-                         img_embeds=batch.get("img_embeds"),
-                         audio_frames=batch.get("audio_frames"))
-        return T.classify(cfg, params, h)
+        with scope(ctx):
+            h, _ = T.forward(cfg, params, batch["tokens"],
+                             img_embeds=batch.get("img_embeds"),
+                             audio_frames=batch.get("audio_frames"),
+                             ctx=ctx)
+            return T.classify(cfg, params, h)
     return classify

@@ -690,3 +690,74 @@ def test_flash_refuses_a_gradient_on_the_card(cuda):
     with torch.no_grad():
         out = FA.flash_attention(q, k, v)
     assert FA.LAUNCHES == 1 and not out.requires_grad
+
+
+# --- the multi-device slice on the card ---------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_superstep_is_bit_identical_on_card(cuda, n):
+    """``_superstep_fn`` over ``n`` row shards on cuda:0: ``n`` kernel
+    launches, outputs bit-identical to one launch."""
+    from repro_torch.system.superstep import _superstep_fn
+    args = [torch.from_numpy(a).to(cuda)
+            for a in superstep_slab(n, 16, 256, 8)]
+    want = _superstep_fn(4, 1)(*args)
+    SS.LAUNCHES = 0
+    got = _superstep_fn(4, n)(*args)
+    assert SS.LAUNCHES == n
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+def test_metropolis_fleet_in_shards_on_card(cuda):
+    kw = dict(num_cameras=1024, duration_s=6.0)
+    solo = P.run_query(P.metropolis(shard_fleet=False, **kw), device="cuda")
+    SS.LAUNCHES = 0
+    split = P.run_query(P.metropolis(shard_fleet=4, **kw), device="cuda")
+    assert SS.LAUNCHES == 4 * split.supersteps > 0
+    keys = ("kernel_launches", "launches_per_tick")
+    assert {k: v for k, v in split.summary().items() if k not in keys} == \
+        {k: v for k, v in solo.summary().items() if k not in keys}
+    assert split.thresholds == solo.thresholds
+
+
+def test_one_card_mesh_step_equals_plain(cuda):
+    """Reduced qwen1.5-0.5b on a (1, 1) mesh over a one-rank NCCL group:
+    one train step bit for bit the plain step's; a prefill under the
+    serve rules with flash on the local heads equals the plain one."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import multihost
+    from repro_torch.launch import train as LT
+    from repro_torch.train import steps as ST
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    multihost.initialize(f"localhost:{LT.free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = MESH.make_host_mesh("cuda")
+        runs = []
+        for m in (None, mesh):
+            state = LT.init_state(cfg, cuda, m)
+            step = LT.make_step(cfg, lr=1e-3, steps=10,
+                                ctx=SH.ActCtx(cfg, m) if m else None)
+            _, metrics = step(state, next(LT.batches(cfg, 2, 64, cuda, m)))
+            runs.append((float(metrics["loss"]),
+                         float(metrics["grad_norm"])))
+        assert runs[0] == runs[1]
+        fcfg = dataclasses.replace(cfg, attn_impl="flash")
+        params = M.init_params(fcfg, torch.Generator(device=cuda)
+                               .manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (1, 128), device=cuda,
+                             dtype=torch.int32)
+        plain, _ = ST.make_prefill_step(fcfg)(params, {"tokens": toks})
+        FA.LAUNCHES = 0
+        dp = SH.distribute_tree(params, SH.param_shardings(fcfg, mesh,
+                                                           "serve"))
+        meshed, _ = ST.make_prefill_step(fcfg, ctx=SH.ActCtx(fcfg, mesh))(
+            dp, {"tokens": SH.distribute(toks, SH.NamedSharding(
+                mesh, ("data", None)))})
+        assert FA.LAUNCHES == cfg.num_layers
+        torch.testing.assert_close(meshed.full_tensor(), plain, rtol=0,
+                                   atol=1e-5)
+    finally:
+        dist.destroy_process_group()

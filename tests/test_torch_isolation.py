@@ -97,6 +97,37 @@ def test_running_the_port_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+#: the multi-device slice's modules: importing one starts no process
+#: group, builds no device mesh and touches no card
+MULTI_DEVICE_MODULES = ["repro_torch.launch.mesh",
+                        "repro_torch.distributed.sharding",
+                        "repro_torch.configs.shapes",
+                        "repro_torch.launch.roofline",
+                        "repro_torch.launch.dryrun",
+                        "repro_torch.launch.multihost",
+                        "repro_torch.launch.train"]
+
+
+def test_multi_device_modules_start_no_group_at_import():
+    code = (
+        "import importlib, sys, threading\n"
+        f"for m in {MULTI_DEVICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'a process group at import'\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    for name in MULTI_DEVICE_MODULES:
+        path = ROOT / "src" / (name.replace(".", "/") + ".py")
+        assert path in PORT_FILES, name
+
+
 def test_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("the refusal only happens on a host without CUDA")

@@ -82,5 +82,9 @@ def test_microbatches_must_divide_the_batch(case):
 
 
 def test_remat_policy_is_refused(case):
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        ST.make_loss_fn(case.cfg, remat_policy="dots")(case.tp, case.tbatch)
+    """A policy the reference does not have is refused; its two
+    ("dots", "dots_no_batch") are held against plain remat in
+    ``tests/test_torch_multidevice.py``."""
+    with pytest.raises(ValueError, match="remat_policy"):
+        ST.make_loss_fn(case.cfg, remat_policy="dots_all")(case.tp,
+                                                           case.tbatch)
