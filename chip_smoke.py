@@ -180,13 +180,19 @@ Phases, each fatal on failure:
    ``remat_policy="dots"`` for ``REMAT_STEPS`` steps (the same losses, its
    peak memory against remat alone), one ``MESH_PROMPT``-token prefill and
    ``MESH_NEW`` greedy decode steps under the serve rules with flash on
-   the local heads (the plain path's tokens); then the production-shape
-   dry-runs of ``DRYRUN_CALLS``, each a process started after the build
-   that runs beside phases 3-14 on fake tensors in a fake process group
-   of 256 or 512 ranks: chips, per-device peak bytes against the card's
-   memory, per-device FLOPs and collective bytes by kind printed, each
-   call failing the script unless it wrote its record by
-   ``DRYRUN_DEADLINE_S``.
+   the local heads (the plain path's tokens); the same for full-width
+   ``MESH_MOE_ARCH`` (``MESH_MOE_STEPS`` train steps: the MoE's row-local
+   dispatch on the mesh, its aux loss beside the loss); then the
+   production-shape dry-runs of ``DRYRUN_CALLS``, each a process started
+   after the build that runs beside phases 3-14 on fake tensors in a
+   fake process group of 256 or 512 ranks: chips, per-device peak bytes
+   against the card's memory, per-device FLOPs and collective bytes by
+   kind printed, each call failing the script unless it wrote its record
+   by ``DRYRUN_DEADLINE_S``; a decode's record also unless it gathered no
+   cache leaf, moved under ``DRYRUN_COLL_LIMIT`` bytes a device (where
+   its serve weights are 1-D: 2-D serve weights are gathered a layer at
+   a time, by the rules) and counted its per-device FLOPs within
+   ``DRYRUN_FLOPS_RTOL`` of ``roofline.decode_flops_per_device``.
 
 Exits non-zero, printing no result, where torch finds no CUDA device or
 the port's sources are not beside this script.  Imports nothing of JAX.
@@ -472,18 +478,32 @@ SHARD_COUNTS = (1, 2, 4, 8)
 MESH_STEPS, REMAT_STEPS = 5, 2
 MESH_RTOL = 1e-5
 MESH_PROMPT, MESH_NEW = 1024, 16
+#: the MoE on the same (1, 1) mesh: full-width granite-moe, its train
+#: steps (of ``LLM_BATCH`` x ``LLM_SEQ``) and the same serve run
+MESH_MOE_ARCH, MESH_MOE_STEPS = "granite-moe-1b-a400m", 3
 #: the production-shape dry-runs (``launch/dryrun.py``), each a process
-#: of its own started after the build and read in phase 15: the
-#: reference test's three calls and qwen3-8b's train step
+#: of its own started after the build and read in phase 15: qwen3-8b's
+#: train step first (the longest), the reference test's three calls, the
+#: reference's two MoE records on the multi mesh, and the decodes whose
+#: caches are context-parallel (qwen3-8b, hymba, whisper)
 DRYRUN_CALLS = [
+    ("qwen3-8b", "train_4k", "single", ()),
     ("qwen1.5-0.5b", "long_500k", "single", ()),
     ("qwen1.5-0.5b", "long_500k", "multi", ()),
     ("qwen1.5-0.5b", "decode_32k", "single", ("--kv-dtype", "int8",
                                               "--serve-1d")),
-    ("qwen3-8b", "train_4k", "single", ()),
+    ("granite-moe-1b-a400m", "prefill_32k", "multi", ()),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", "multi", ()),
+    ("qwen3-8b", "decode_32k", "single", ()),
+    ("hymba-1.5b", "decode_32k", "single", ()),
+    ("whisper-large-v3", "decode_32k", "single", ()),
 ]
 #: seconds from the script's start by which every dry-run must be done
 DRYRUN_DEADLINE_S = 1050.0
+#: a decode record's collective bytes a device a step, and its FLOPs
+#: against the per-device analytic count (relative)
+DRYRUN_COLL_LIMIT = 100e6
+DRYRUN_FLOPS_RTOL = 0.01
 
 
 def fail(msg: str) -> None:
@@ -2956,8 +2976,189 @@ def finish_dryruns(runs: list, t_all: float) -> list:
             fail(f"dry-run {arch} long_500k window {rec['window']}")
         if rec["device"] != "cuda":
             fail(f"dry-run {arch} {shape} {mesh} ran on {rec['device']}")
+        if rec["shape"] in ("decode_32k", "long_500k"):
+            check_decode_record(rec)
         recs.append(rec)
     return recs
+
+
+def check_decode_record(rec: dict) -> None:
+    """A decode's dry-run record: no cache leaf gathered (no all-gather
+    returns the elements and dims of one layer's cache leaf whole for the
+    device's rows, and, where the serve weights are 1-D, all of them
+    together move less than the largest such leaf), per-device FLOPs
+    within ``DRYRUN_FLOPS_RTOL`` of the analytic count over the shards,
+    and collective bytes a device under ``DRYRUN_COLL_LIMIT``: all of
+    them where the serve weights are 1-D; where they are 2-D (split on
+    "data" too, so each step gathers them), all but one pass over the
+    weights (``dryrun.serve_weight_pass_bytes``), which the all-gathers
+    must cover."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import INPUT_SHAPES
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as MESH
+    what = f"dry-run {rec['arch']} {rec['shape']} {rec['mesh']}"
+    cfg, sh = get_config(rec["arch"]), INPUT_SHAPES[rec["shape"]]
+    if rec["overrides"].get("kv_dtype"):
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=rec["overrides"][
+            "kv_dtype"])
+    mesh = MESH.make_production_mesh(multi_pod=rec["mesh"] == "multi")
+    leaves = D.cache_leaf_sizes(cfg, sh, mesh)
+    ag = rec["collectives"]["all-gather"]
+    hits = D.gathers_of(leaves, ag["shapes"])
+    two_d = SH.logical_to_mesh(cfg, mesh, "serve", rec["overrides"].get(
+        "serve_1d", False))["embed"] == "data"
+    weights = D.serve_weight_pass_bytes(cfg, mesh) if two_d else 0.0
+    rest = rec["collectives"]["total_bytes"] - weights
+    ratio = rec["cost"]["flops"] / rec["analytic"]["decode_flops_per_device"]
+    print(f"  {what}: {hits} all-gathers of a cache leaf, all-gathers "
+          f"{ag['bytes']:.4e} B (largest {ag['largest_bytes']:.4e}); 2-D "
+          f"serve weights {two_d} (one pass {weights:.4e} B), collectives "
+          f"beside it {rest:.4e} B; FLOPs / per-device analytic "
+          f"{ratio:.6f}", flush=True)
+    if hits or ag["cache_leaf_gathers"]:
+        fail(f"{what} gathered a cache leaf {hits} times")
+    if not two_d and not ag["bytes"] < max(n for n, _ in leaves) * 2:
+        fail(f"{what} all-gathered {ag['bytes']} bytes a device")
+    if not (rest < DRYRUN_COLL_LIMIT and ag["bytes"] >= weights):
+        fail(f"{what} moved {rec['collectives']['total_bytes']} collective "
+             f"bytes a device, {rest} beside one pass over its 2-D serve "
+             f"weights ({weights}), over {DRYRUN_COLL_LIMIT:.0e}")
+    if not abs(ratio - 1) < DRYRUN_FLOPS_RTOL:
+        fail(f"{what}: FLOPs {rec['cost']['flops']} against the analytic "
+             f"{rec['analytic']['decode_flops_per_device']}")
+
+
+def mesh_train(torch, cfg, mesh, dev, steps: int, zero_counts,
+               read_counts) -> dict:
+    """``steps`` train steps of full-width ``cfg`` with and without the
+    (1, 1) ``mesh``: (loss, grad_norm, moe_aux) a step within
+    ``MESH_RTOL``, step ms.  A MoE's steps run under
+    ``torch.use_deterministic_algorithms``: its combine is a scatter-add,
+    whose order is not fixed on the card, and a router near-tie amplifies
+    an ulp into another expert's choice within a step or two."""
+    import numpy as np
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import train as LT
+    runs = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(cfg.is_moe or was, warn_only=True)
+    for name, m, c in (("plain", None, None),
+                       ("mesh", mesh, SH.ActCtx(cfg, mesh))):
+        state = LT.init_state(cfg, dev, m)
+        step = LT.make_step(cfg, lr=LLM_LR, steps=LLM_STEPS, ctx=c)
+        data = LT.batches(cfg, LLM_BATCH, LLM_SEQ, dev, m)
+        metrics, ms = [], []
+        zero_counts()
+        for _ in range(steps):
+            batch = next(data)
+            t0 = time.perf_counter()
+            state, mt = step(state, batch)
+            metrics.append((float(mt["loss"]), float(mt["grad_norm"]),
+                            float(mt["moe_aux"])))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        if any(read_counts().values()):
+            fail(f"the {name} train steps of {cfg.name} launched a "
+                 f"kernel")
+        if name == "mesh" and not SH.is_dtensor(state.params["embed"]):
+            fail("the mesh train step did not keep DTensor parameters")
+        runs[name] = (metrics, float(np.median(ms[1:])))
+        del state, step, data, batch
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(was)
+    gaps = [max(abs(a - b) / abs(b) if b else abs(a)
+                for a, b in zip(x, y))
+            for x, y in zip(runs["mesh"][0], runs["plain"][0])]
+    print(f"{cfg.name} train on a (1, 1) mesh, {steps} steps of "
+          f"{LLM_BATCH} x {LLM_SEQ}: (loss, grad_norm, moe_aux) mesh "
+          f"{runs['mesh'][0]} plain {runs['plain'][0]}, largest "
+          f"relative gap {max(gaps):.3g}; step ms (median of steps 2-"
+          f"{steps}) mesh {runs['mesh'][1]:.1f} plain "
+          f"{runs['plain'][1]:.1f} (DTensor's dispatch "
+          f"{runs['mesh'][1] - runs['plain'][1]:.1f})", flush=True)
+    if not max(gaps) <= MESH_RTOL:
+        fail(f"the mesh train steps of {cfg.name} differ from the "
+             f"plain ones by {max(gaps)} > {MESH_RTOL}")
+    return {"steps": steps, "mesh": runs["mesh"][0],
+            "plain": runs["plain"][0], "rel_gap": max(gaps),
+            "mesh_step_ms": runs["mesh"][1],
+            "plain_step_ms": runs["plain"][1]}
+
+
+def mesh_serve(torch, cfg, mesh, dev, zero_counts, read_counts) -> dict:
+    """One ``MESH_PROMPT``-token prefill and ``MESH_NEW`` greedy decode
+    steps of full-width ``cfg`` under flash, with and without the (1, 1)
+    ``mesh``: tokens equal, prefill logits within ``LOGIT_ATOL``, one
+    flash launch a layer each."""
+    import numpy as np
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import meta as M
+    from repro_torch.train import steps as ST
+    fcfg = dataclasses.replace(cfg, attn_impl="flash")
+    params = M.init_params(fcfg, torch.Generator(device=dev)
+                           .manual_seed(0))
+    prompt = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (1, MESH_PROMPT)).astype(np.int32)).to(dev)
+    serve = {}
+    for name, c in (("plain", None), ("mesh", SH.ActCtx(fcfg, mesh))):
+        p = params if c is None else SH.distribute_tree(
+            params, SH.param_shardings(fcfg, mesh, "serve"))
+        toks = prompt if c is None else SH.distribute(
+            prompt, SH.batch_specs(fcfg, mesh, 1,
+                                   {"t": prompt})["t"])
+        prefill = ST.make_prefill_step(
+            fcfg, cache_len=MESH_PROMPT + MESH_NEW, ctx=c)
+        decode = ST.make_decode_step(fcfg, ctx=c)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, {"tokens": toks})
+        got, margins, first = [], [], None
+        for _ in range(MESH_NEW):
+            full = logits.full_tensor() if SH.is_dtensor(logits) \
+                else logits
+            if first is None:
+                first = full.float().cpu()
+            top = torch.topk(full[0].float(), 2).values
+            margins.append(float(top[0] - top[1]))
+            tok = torch.argmax(full, dim=-1).to(torch.int32)
+            got.append(int(tok[0]))
+            if c is not None:
+                tok = SH.distribute(tok, SH.batch_specs(
+                    fcfg, mesh, 1, {"t": tok})["t"])
+            logits, cache = decode(p, cache, tok)
+        torch.cuda.synchronize()
+        serve[name] = (got, margins, first,
+                       time.perf_counter() - t0,
+                       read_counts()["flash_attention"])
+        del cache, logits
+    flips = same_tokens(f"{cfg.name} serve on the mesh",
+                        serve["mesh"][0], serve["plain"][0],
+                        serve["plain"][1])
+    lgap = float((serve["mesh"][2] - serve["plain"][2]).abs().max())
+    print(f"{cfg.name} serve on a (1, 1) mesh under the serve rules "
+          f"(flash on the local heads): a {MESH_PROMPT}-token prefill "
+          f"and {MESH_NEW} decode steps, tokens "
+          f"{'equal to' if not flips else 'near-tie flips from'} the "
+          f"plain path's ({serve['mesh'][0][:6]}...), prefill logits "
+          f"within {lgap:.3g}; flash launches mesh {serve['mesh'][4]} "
+          f"plain {serve['plain'][4]}; {serve['mesh'][3]:.2f} s vs "
+          f"{serve['plain'][3]:.2f} s", flush=True)
+    if not lgap <= LOGIT_ATOL:
+        fail(f"{cfg.name}: mesh prefill logits differ by {lgap} > "
+             f"{LOGIT_ATOL}")
+    if serve["mesh"][4] != cfg.num_layers or \
+            serve["plain"][4] != cfg.num_layers:
+        fail(f"{cfg.name}: flash launches {serve['mesh'][4]} (mesh) and "
+             f"{serve['plain'][4]} (plain), want {cfg.num_layers} each")
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens": serve["mesh"][0], "flips": flips,
+            "prefill_logit_gap": lgap,
+            "flash_launches": serve["mesh"][4],
+            "plain_flash_launches": serve["plain"][4],
+            "mesh_s": serve["mesh"][3], "plain_s": serve["plain"][3]}
 
 
 def multi_device_phase(torch, SS, mrep, cap_args, zero_counts,
@@ -2978,20 +3179,18 @@ def multi_device_phase(torch, SS, mrep, cap_args, zero_counts,
        against remat alone, with their peak memory; one
        ``MESH_PROMPT``-token prefill and ``MESH_NEW`` greedy decode steps
        under the serve rules (flash attention on the local heads) against
-       the plain path's tokens.
+       the plain path's tokens; the same train steps (``MESH_MOE_STEPS``
+       of them, the aux loss held too) and serve run for full-width
+       ``MESH_MOE_ARCH``.
     Returns the numbers, and the recorder of the sharded run's superstep
     launches."""
-    import numpy as np
     import torch.distributed as dist
     from repro_torch.configs import get_config
-    from repro_torch.distributed import sharding as SH
     from repro_torch.launch import mesh as MESH
     from repro_torch.launch import multihost
     from repro_torch.launch import train as LT
-    from repro_torch.models import meta as M
     from repro_torch.system import metropolis, run_query
     from repro_torch.system.superstep import _superstep_fn
-    from repro_torch.train import steps as ST
     out = {}
 
     # 1. the fleet's row axis in shards on one card
@@ -3056,43 +3255,8 @@ def multi_device_phase(torch, SS, mrep, cap_args, zero_counts,
                                device="cuda")
     try:
         mesh = MESH.make_host_mesh("cuda")
-        ctx = SH.ActCtx(cfg, mesh)
-        runs = {}
-        for name, m, c in (("plain", None, None), ("mesh", mesh, ctx)):
-            state = LT.init_state(cfg, dev, m)
-            step = LT.make_step(cfg, lr=LLM_LR, steps=LLM_STEPS, ctx=c)
-            data = LT.batches(cfg, LLM_BATCH, LLM_SEQ, dev, m)
-            metrics, ms = [], []
-            zero_counts()
-            for _ in range(MESH_STEPS):
-                batch = next(data)
-                t0 = time.perf_counter()
-                state, mt = step(state, batch)
-                metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
-                ms.append(1e3 * (time.perf_counter() - t0))
-            if any(read_counts().values()):
-                fail(f"the {name} train steps launched a kernel")
-            if name == "mesh" and not SH.is_dtensor(state.params["embed"]):
-                fail("the mesh train step did not keep DTensor parameters")
-            runs[name] = (metrics, float(np.median(ms[1:])))
-            del state, step, data, batch
-            torch.cuda.empty_cache()
-        gaps = [max(abs(a - b) / abs(b) for a, b in zip(x, y))
-                for x, y in zip(runs["mesh"][0], runs["plain"][0])]
-        print(f"{LLM_ARCH} train on a (1, 1) mesh, {MESH_STEPS} steps of "
-              f"{LLM_BATCH} x {LLM_SEQ}: (loss, grad_norm) mesh "
-              f"{runs['mesh'][0]} plain {runs['plain'][0]}, largest "
-              f"relative gap {max(gaps):.3g}; step ms (median of steps 2-"
-              f"{MESH_STEPS}) mesh {runs['mesh'][1]:.1f} plain "
-              f"{runs['plain'][1]:.1f} (DTensor's dispatch "
-              f"{runs['mesh'][1] - runs['plain'][1]:.1f})", flush=True)
-        if not max(gaps) <= MESH_RTOL:
-            fail(f"the mesh train steps differ from the plain ones by "
-                 f"{max(gaps)} > {MESH_RTOL}")
-        out["train"] = {"steps": MESH_STEPS, "mesh": runs["mesh"][0],
-                        "plain": runs["plain"][0], "rel_gap": max(gaps),
-                        "mesh_step_ms": runs["mesh"][1],
-                        "plain_step_ms": runs["plain"][1]}
+        out["train"] = mesh_train(torch, cfg, mesh, dev, MESH_STEPS,
+                                  zero_counts, read_counts)
 
         remat = {}
         for policy in (None, "dots"):
@@ -3124,71 +3288,13 @@ def multi_device_phase(torch, SS, mrep, cap_args, zero_counts,
                              "remat_losses": remat["remat"][0],
                              "peak_gb": remat["dots"][1],
                              "remat_peak_gb": remat["remat"][1]}
-
-        fcfg = dataclasses.replace(cfg, attn_impl="flash")
-        params = M.init_params(fcfg, torch.Generator(device=dev)
-                               .manual_seed(0))
-        prompt = torch.from_numpy(np.random.default_rng(15).integers(
-            0, cfg.vocab_size, (1, MESH_PROMPT)).astype(np.int32)).to(dev)
-        serve = {}
-        for name, c in (("plain", None), ("mesh", SH.ActCtx(fcfg, mesh))):
-            p = params if c is None else SH.distribute_tree(
-                params, SH.param_shardings(fcfg, mesh, "serve"))
-            toks = prompt if c is None else SH.distribute(
-                prompt, SH.batch_specs(fcfg, mesh, 1,
-                                       {"t": prompt})["t"])
-            prefill = ST.make_prefill_step(
-                fcfg, cache_len=MESH_PROMPT + MESH_NEW, ctx=c)
-            decode = ST.make_decode_step(fcfg, ctx=c)
-            zero_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = prefill(p, {"tokens": toks})
-            got, margins, first = [], [], None
-            for _ in range(MESH_NEW):
-                full = logits.full_tensor() if SH.is_dtensor(logits) \
-                    else logits
-                if first is None:
-                    first = full.float().cpu()
-                top = torch.topk(full[0].float(), 2).values
-                margins.append(float(top[0] - top[1]))
-                tok = torch.argmax(full, dim=-1).to(torch.int32)
-                got.append(int(tok[0]))
-                if c is not None:
-                    tok = SH.distribute(tok, SH.batch_specs(
-                        fcfg, mesh, 1, {"t": tok})["t"])
-                logits, cache = decode(p, cache, tok)
-            torch.cuda.synchronize()
-            serve[name] = (got, margins, first,
-                           time.perf_counter() - t0,
-                           read_counts()["flash_attention"])
-            del cache, logits
-        flips = same_tokens(f"{LLM_ARCH} serve on the mesh",
-                            serve["mesh"][0], serve["plain"][0],
-                            serve["plain"][1])
-        lgap = float((serve["mesh"][2] - serve["plain"][2]).abs().max())
-        print(f"{LLM_ARCH} serve on a (1, 1) mesh under the serve rules "
-              f"(flash on the local heads): a {MESH_PROMPT}-token prefill "
-              f"and {MESH_NEW} decode steps, tokens "
-              f"{'equal to' if not flips else 'near-tie flips from'} the "
-              f"plain path's ({serve['mesh'][0][:6]}...), prefill logits "
-              f"within {lgap:.3g}; flash launches mesh {serve['mesh'][4]} "
-              f"plain {serve['plain'][4]}; {serve['mesh'][3]:.2f} s vs "
-              f"{serve['plain'][3]:.2f} s", flush=True)
-        if not lgap <= LOGIT_ATOL:
-            fail(f"mesh prefill logits differ by {lgap} > {LOGIT_ATOL}")
-        if serve["mesh"][4] != cfg.num_layers or \
-                serve["plain"][4] != cfg.num_layers:
-            fail(f"flash launches {serve['mesh'][4]} (mesh) and "
-                 f"{serve['plain'][4]} (plain), want {cfg.num_layers} each")
-        out["serve"] = {"tokens": serve["mesh"][0], "flips": flips,
-                        "prefill_logit_gap": lgap,
-                        "flash_launches": serve["mesh"][4],
-                        "plain_flash_launches": serve["plain"][4],
-                        "mesh_s": serve["mesh"][3],
-                        "plain_s": serve["plain"][3]}
-        del params
-        torch.cuda.empty_cache()
+        out["serve"] = mesh_serve(torch, cfg, mesh, dev, zero_counts,
+                                  read_counts)
+        moe = get_config(MESH_MOE_ARCH)
+        out["moe_train"] = mesh_train(torch, moe, mesh, dev, MESH_MOE_STEPS,
+                                      zero_counts, read_counts)
+        out["moe_serve"] = mesh_serve(torch, moe, mesh, dev, zero_counts,
+                                      read_counts)
     finally:
         dist.destroy_process_group()
     out["superstep_recorder"] = rec_shard
@@ -3627,8 +3733,9 @@ def main() -> None:
     llm = llm_training_phase(torch, dev, zero_counts, read_counts)
 
     phase(f"multi-device (15): metropolis with its fleet in {FLEET_SHARDS} "
-          f"row shards; full-width {LLM_ARCH} train and serve on a (1, 1) "
-          f"device mesh; the production-shape dry-runs")
+          f"row shards; full-width {LLM_ARCH} and {MESH_MOE_ARCH} train "
+          f"and serve on a (1, 1) device mesh; the production-shape "
+          f"dry-runs")
     multi = multi_device_phase(
         torch, SS, mrep, max(ss_full.calls, key=lambda a: a[0].numel()),
         zero_counts, read_counts)
@@ -3977,6 +4084,10 @@ def main() -> None:
                 multi["serve"]["flash_launches"],
                 "multi_device_serve_24_layers_plain":
                 multi["serve"]["plain_flash_launches"],
+                "multi_device_serve_granite_moe_24_layers_mesh":
+                multi["moe_serve"]["flash_launches"],
+                "multi_device_serve_granite_moe_24_layers_plain":
+                multi["moe_serve"]["plain_flash_launches"],
                 "serving_24_layers_flash":
                 serving["flash_24"]["flash_launches"],
                 "serving_24_layers_chunked":

@@ -363,6 +363,39 @@ def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                      redistribute_inputs=True, device_mesh=mesh)(x, idx)
 
 
+def on_positions(fn, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The sum over positions of ``fn(x, idx)`` (per-position terms, (B,
+    S')) on each shard's own positions, for a DTensor ``x`` (B, S, V)
+    split on its batch and sequence only (a vocabulary that does not
+    divide the "model" axis: the logits' sequence split instead) and
+    indices ``idx`` (B, S', 1) for its last S' positions (a prefix with no
+    index, such as an image prefix, left out: dropping it from ``x``
+    would move every shard's rows).  Each shard picks its own positions'
+    indices (no collective) and sums its terms; the shards' partial sums
+    are reduced.  A label pick over such logits on DTensors would gather
+    them, or their gradient."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+          for p in x.placements]
+    rows = row_placements(x)
+    prefix = x.shape[1] - idx.shape[1]
+    first = shard_start(x, 1, pl) - prefix      # this shard's first label
+
+    def local(xl, il):
+        # its labelled rows [a, b) in label positions, both ends clamped:
+        # a shard wholly inside the prefix has none
+        a, b = max(first, 0), max(first + xl.shape[1], 0)
+        return fn(xl[:, a - first:], il[:, a:b]).sum()
+
+    out = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    return reduce_partial(local_map(
+        local, out_placements=out, in_placements=(pl, rows),
+        redistribute_inputs=True, device_mesh=mesh)(
+        reduce_partial(x), as_dtensor(idx, mesh)))
+
+
 def reduce_partial(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's partial placements reduced (to ``Replicate()``); its
     shards kept.  Plain tensors pass unchanged."""
@@ -494,6 +527,162 @@ def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return local_map(local, out_placements=pl, in_placements=in_pl,
                      in_grad_placements=grad_pl, redistribute_inputs=True,
                      device_mesh=mesh)(q, k, v, *rows)
+
+
+def split_dims(x: torch.Tensor, dim: int) -> Tuple[int, ...]:
+    """The mesh dims on which the DTensor ``x`` splits its ``dim`` (none
+    for a plain tensor)."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return ()
+    return tuple(i for i, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def row_placements(x: torch.Tensor) -> list:
+    """``x``'s batch (dim 0) shards, ``Replicate()`` on every other mesh
+    dim: the layout in which each shard holds whole rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in x.placements]
+
+
+def tp_layout(rows: torch.Tensor, dim: Optional[int], mesh=None) -> list:
+    """Placements of a tensor with ``rows``' batch shards (none when
+    ``rows`` is None: a weight, on ``mesh``), split on ``dim`` over the
+    "model" mesh dim (whole where ``dim`` is None), ``Replicate()`` on
+    every other mesh dim (a "model" dim of size 1 holds it whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = rows.device_mesh if rows is not None else mesh
+    pl = row_placements(rows) if rows is not None else \
+        [Replicate()] * mesh.ndim
+    return [Shard(dim) if n == "model" and dim is not None
+            and mesh.size(i) > 1 else p
+            for i, (n, p) in enumerate(zip(mesh.mesh_dim_names, pl))]
+
+
+def model_size(x: torch.Tensor) -> int:
+    """The size of the "model" mesh dim of the DTensor ``x`` (1 where it
+    has none)."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index("model")) if "model" in names else 1
+
+
+def copy_local(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` for DTensors, shard by shard: ``src`` put in
+    ``dst``'s layout (no collective where it already is), then each
+    shard copied into its own part of ``dst``."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    src = as_dtensor(src, dst.device_mesh)
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+
+
+def all_reduce_over(mesh, dims) -> Any:
+    """``reduce(t, op)``: ``t`` all-reduced (``op`` "sum" or "max") over
+    the mesh dims ``dims``, for use on local tensors inside ``local_map``
+    (functional collectives; no gradient)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+        for d in dims:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
+        return t
+    return reduce
+
+
+def on_sequence_shards(fn, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, q_pos: torch.Tensor,
+                       k_pos: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v, q_pos, k_pos, merge)`` on each shard's own keys, for
+    a decode step (q (B, 1, H, hd)) over a context-parallel cache: k, v
+    (B, Sk, KV, hd) DTensors whose sequence is split (``cache_specs``'s
+    layout where the KV heads do not divide the "model" axis).  Each
+    shard gets q's whole heads for its own rows (a gather of the one
+    query token's heads at most), its own slots of k, v and of ``k_pos``
+    ((B, Sk) or (Sk,), split like the keys: no collective), and
+    ``merge``, an all-reduce over the mesh dims that split the keys,
+    which ``fn`` calls on its running max, its sum of exponentials and
+    its unnormalised output (``layers.attention``'s log-sum-exp merge).
+    Neither the cache nor the sequence is gathered; the result has q's
+    rows and every head whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    seq = split_dims(k, 1)
+    rows = row_placements(q)
+    kv_pl = [Shard(1) if i in seq else p for i, p in enumerate(rows)]
+    k_pos = as_dtensor(k_pos, mesh)
+    if k_pos.ndim == 1:
+        kp_pl = [Shard(0) if i in seq else Replicate()
+                 for i in range(len(rows))]
+    else:
+        kp_pl = kv_pl
+    qp_pl = rows if is_dtensor(q_pos) else None
+    merge = all_reduce_over(mesh, seq)
+    # placements as lists: a tuple would read as one entry per output
+    return local_map(lambda ql, kl, vl, qp, kp: fn(ql, kl, vl, qp, kp, merge),
+                     out_placements=list(rows),
+                     in_placements=(rows, kv_pl, kv_pl, qp_pl, kp_pl),
+                     redistribute_inputs=True, device_mesh=mesh)(
+        q, k, v, q_pos, k_pos)
+
+
+def on_local_rows(fn, n_out: int, x: torch.Tensor, w: torch.Tensor):
+    """``fn(x, w)`` on each shard's own whole rows of the DTensor ``x``
+    (B, ...): its batch shards kept, everything else gathered (``local_map``),
+    ``w`` whole.  ``fn`` returns ``n_out`` tensors of x's rows, laid out
+    so (each shard on the same data coordinate computes the same).
+    ``w``'s gradient is a partial sum over the rows' shards."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rows = row_placements(x)
+    return local_map(fn, out_placements=tuple([rows] * n_out),
+                     in_placements=(rows, [Replicate()] * mesh.ndim),
+                     in_grad_placements=(rows, weight_grad(rows)),
+                     redistribute_inputs=True, device_mesh=mesh)(
+        x, as_dtensor(w, mesh))
+
+
+def weight_grad(rows, placements=None) -> list:
+    """The gradient placements of a weight of ``placements`` (whole on
+    every mesh dim where None) met by activations of ``rows``'
+    placements: a partial sum over each mesh dim that splits the batch,
+    the weight's own placement elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    placements = placements or [Replicate()] * len(rows)
+    return [Partial() if isinstance(r, Shard) and r.dim == 0 else p
+            for r, p in zip(rows, placements)]
+
+
+def on_expert_shards(fn, ob: torch.Tensor, slot_token: torch.Tensor,
+                     slot_w: torch.Tensor) -> torch.Tensor:
+    """The MoE combine on each shard's own experts: ``fn(ob, slot_token,
+    slot_w, first)`` with ob (B, E, cap, D) this shard's experts from
+    ``first`` on (its "model" shard of E) and the (B, E*cap) slot maps
+    of its rows.  Where E is split, each shard's result is a partial sum
+    (``Partial()``: reduce it with ``reduce_partial``), and so is the
+    slot weights' gradient."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ob.device_mesh
+    ob_pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+             for p in ob.placements]
+    rows = row_placements(ob)
+    experts = split_dims(ob, 1)
+    part = [Partial() if i in experts else p for i, p in enumerate(rows)]
+    first = shard_start(ob, 1, ob_pl)
+    return local_map(lambda o, st, sw: fn(o, st, sw, first),
+                     out_placements=part,
+                     in_placements=(ob_pl, rows, rows),
+                     in_grad_placements=(ob_pl, rows, part),
+                     redistribute_inputs=True, device_mesh=mesh)(
+        ob, slot_token, slot_w)
 
 
 def full_tree(tree: M.Tree) -> M.Tree:

@@ -14,9 +14,10 @@ rules (``distributed.sharding``), and runs it once with no allocation:
 
 It records, per device (rank 0):
 
-  * ``memory.peak_bytes`` — the peak of live tensor bytes over the step,
-    arguments included (``torch.distributed._tools.mem_tracker.
-    MemTracker``), beside one card's memory (``fits``);
+  * ``memory.peak_bytes`` — the peak of live tensor bytes on the step's
+    device over the step, arguments included (``torch.distributed.
+    _tools.mem_tracker.MemTracker``; storage-free "meta" tensors left
+    out), beside one card's memory (``fits``);
   * ``cost.flops`` — FLOPs of the operations on the local shards
     (``torch.utils.flop_counter``'s formulas).  A ``FlopCounterMode``
     around DTensor operations would count their global shapes; here the
@@ -24,13 +25,26 @@ It records, per device (rank 0):
   * ``collectives`` — the collectives DTensor issued, by kind: count and
     result bytes (an all-reduce counted twice, reduce then broadcast, as
     the reference counts it), their ``total_bytes``, and
-    ``torch.distributed.tensor.debug.CommDebugMode``'s counts beside them;
+    ``torch.distributed.tensor.debug.CommDebugMode``'s counts beside
+    them; the largest single result of each kind, and the all-gathers'
+    result shapes with their counts (so a gathered cache leaf shows);
+  * for a decode, ``collectives["all-gather"]["cache_leaf_gathers"]``:
+    the all-gathers whose result has the elements and dims of one
+    layer's cache leaf whole for the device's rows (``cache_leaf_sizes``);
+  * ``analytic`` — the reference's analytic counts for the same call
+    (``launch.roofline.analyze``, the port's copy): global and per-device
+    FLOPs, per-device collective bytes, the roofline's three terms and
+    its dominant one; for a decode the per-device count over the shards
+    that split each term (``roofline.decode_flops_per_device``); and the
+    roofline of the measured per-device FLOPs and collective bytes
+    (``measured_*``; its memory term the analytic one);
   * ``window``, ``chips``, ``params``.
 
 The record keeps the reference's keys (``cost.flops`` per device,
 ``collectives.total_bytes``), so ``roofline.load_dryrun`` reads either
-package's records.  The step runs in this process; the CLI is one process
-per call, as the fake group is process-global.
+package's records.  One combination runs in this process; more (``--all``,
+``--mesh both``) run a process each, as many at once as the host has
+cores, because the fake group is process-global.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k \\
@@ -43,6 +57,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -56,6 +71,7 @@ from repro_torch.configs.shapes import (INPUT_SHAPES, InputShape,
                                         input_specs)
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import mesh as MESH
+from repro_torch.launch import roofline as R
 from repro_torch.models import meta as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -87,7 +103,10 @@ class _LocalCounter:
         counter = self
         self.flops = 0
         self.coll: Dict[str, Dict[str, int]] = {
-            k: {"count": 0, "bytes": 0} for k in COLLECTIVES.values()}
+            k: {"count": 0, "bytes": 0, "largest_bytes": 0}
+            for k in COLLECTIVES.values()}
+        #: all-gather result shapes ("AxBxC") -> count
+        self.gathered: Dict[str, int] = {}
 
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -102,9 +121,14 @@ class _LocalCounter:
                 kind = COLLECTIVES.get(packet.__name__)
                 if kind is not None and isinstance(out, torch.Tensor):
                     nbytes = out.numel() * out.element_size()
-                    counter.coll[kind]["count"] += 1
-                    counter.coll[kind]["bytes"] += nbytes * (
+                    rec = counter.coll[kind]
+                    rec["count"] += 1
+                    rec["bytes"] += nbytes * (
                         2 if kind == "all-reduce" else 1)
+                    rec["largest_bytes"] = max(rec["largest_bytes"], nbytes)
+                    if kind == "all-gather":
+                        n = "x".join(map(str, out.shape))
+                        counter.gathered[n] = counter.gathered.get(n, 0) + 1
                 return out
 
         self.mode = Mode()
@@ -112,6 +136,7 @@ class _LocalCounter:
     def collectives(self) -> Dict[str, Any]:
         out: Dict[str, Any] = dict(self.coll)
         out["total_bytes"] = sum(v["bytes"] for v in self.coll.values())
+        out["all-gather"]["shapes"] = dict(self.gathered)
         return out
 
 
@@ -246,6 +271,50 @@ def build_program(cfg: ModelConfig, shape: InputShape, mesh, device,
     return fn, (params, cache, batch["token"])
 
 
+def cache_leaf_sizes(cfg: ModelConfig, shape: InputShape, mesh) -> set:
+    """(elements, dims) of one layer's decode-cache leaves, whole, for
+    the rows one device holds: what an all-gather of a cache leaf
+    returns, in whatever order of its dims."""
+    data = SH.data_size(mesh)
+    B = shape.global_batch
+    rows = B // data if B % data == 0 else B
+    cache = T.make_cache(cfg, rows, attn_cache_len(cfg, shape),
+                         abstract=True)["layers"]
+    return {(t[0].numel(), t[0].ndim) for _, t in M.leaves(cache)}
+
+
+def gathers_of(sizes: set, shapes: Dict[str, int]) -> int:
+    """How many of the all-gathers ``shapes`` ("AxBxC" -> count) returned
+    a tensor of one of ``sizes`` ((elements, dims))."""
+    def size(key: str):
+        dims = [int(d) for d in key.split("x")] if key else []
+        return math.prod(dims), len(dims)
+    return sum(c for k, c in shapes.items() if size(k) in sizes)
+
+
+def serve_weight_pass_bytes(cfg: ModelConfig, mesh,
+                            dtype=torch.bfloat16) -> float:
+    """Bytes of one pass over the serve weights on one device once every
+    mesh axis but "model" is gathered (their 1-D serve layout), a tied
+    embedding counted once for each of its two uses: what a step's
+    all-gathers return where the serve rule splits the weights on "data"
+    too (2-D serve weights) and each use gathers its weight once."""
+    def on_device(t, spec):
+        div = 1
+        for entry in spec:
+            for ax in (() if entry is None else (entry,)
+                       if isinstance(entry, str) else entry):
+                div *= mesh.shape[ax]
+        return t.numel() * t.element_size() / div
+    params = M.abstract_params(cfg, dtype)
+    specs = SH.param_specs(cfg, mesh, "serve", force_1d_serve=True)
+    total = sum(on_device(t, s) for (_, t), (_, s) in
+                zip(M.leaves(params), M.leaves(specs)))
+    if cfg.tie_embeddings:
+        total += on_device(params["embed"], specs["embed"])
+    return float(total)
+
+
 def card_memory_bytes() -> tuple:
     """(bytes, source) of one card's memory."""
     if torch.cuda.is_available():
@@ -263,6 +332,8 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
     from torch.distributed.tensor.debug import CommDebugMode
 
     cfg = get_config(arch)
+    if (overrides or {}).get("kv_dtype"):
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=overrides["kv_dtype"])
     shape = INPUT_SHAPES[shape_name]
     dev = torch.device(device)
     mesh = MESH.make_production_mesh(multi_pod=(mesh_kind == "multi"),
@@ -281,16 +352,41 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
         with mem, comm, counter.mode:
             fn(*args)
     t_run = time.time() - t0 - t_build
+    # the step's device only: the abstract trees the step builds to lay
+    # out its caches (``make_cache(abstract=True)``) sit on "meta", which
+    # holds no storage on a card
     snap = mem.get_tracker_snapshot("peak")
-    peak = float(sum(v["Total"] for v in snap.values()))
+    peak = float(sum(v["Total"] for d, v in snap.items()
+                     if torch.device(d).type == dev.type))
     arg_bytes = float(sum(_local_bytes(t) for t in _leaves(args)))
     card_bytes, card_src = card_memory_bytes()
     coll = counter.collectives()
     coll["comm_debug_counts"] = {str(k): v for k, v in
                                  comm.get_comm_counts().items()}
+    if shape.kind == "decode":
+        coll["all-gather"]["cache_leaf_gathers"] = gathers_of(
+            cache_leaf_sizes(cfg, shape, mesh), coll["all-gather"]["shapes"])
+    chips = MESH.chips(mesh)
+    rl = R.analyze(cfg, shape, chips=chips, tp=mesh.shape["model"],
+                   mesh_name=mesh_kind)
+    measured = {"compute": counter.flops / MESH.PEAK_FLOPS_BF16,
+                "memory": rl.memory_s,
+                "collective": coll["total_bytes"] / MESH.LINK_BW}
+    analytic = {
+        "flops": rl.analytic_flops,
+        "flops_per_device": rl.analytic_flops / chips,
+        "decode_flops_per_device": R.decode_flops_per_device(
+            cfg, shape, SH.data_size(mesh), mesh.shape["model"])
+        if shape.kind == "decode" else None,
+        "collective_bytes_per_device": rl.collective_s * MESH.LINK_BW,
+        "compute_s": rl.compute_s, "memory_s": rl.memory_s,
+        "collective_s": rl.collective_s, "dominant": rl.dominant,
+        "measured_compute_s": measured["compute"],
+        "measured_collective_s": measured["collective"],
+        "measured_dominant": max(measured, key=measured.get)}
     rec = {
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
-        "chips": MESH.chips(mesh), "device": str(dev),
+        "chips": chips, "device": str(dev),
         "params": cfg.param_count(),
         "active_params": cfg.param_count(active_only=True),
         "build_s": round(t_build, 2), "run_s": round(t_run, 2),
@@ -300,6 +396,7 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
         "cost": {"flops": float(counter.flops),
                  "flops_counted_on": "rank 0's local shards (per device)"},
         "collectives": coll,
+        "analytic": analytic,
         "window": decode_window(cfg, shape),
         "overrides": {k: v for k, v in (overrides or {}).items() if v},
     }
@@ -310,6 +407,8 @@ def dryrun_one(arch: str, shape_name: str, mesh_kind: str,
               f"(card {card_bytes / 2**30:.1f}GiB, "
               f"fits={rec['memory']['fits']}) "
               f"coll={coll['total_bytes'] / 2**20:.1f}MiB "
+              f"(analytic {analytic['collective_bytes_per_device'] / 2**20:.1f}"
+              f"MiB, flops x{counter.flops / analytic['flops_per_device']:.3f}) "
               f"(build {t_build:.1f}s run {t_run:.1f}s)")
         print("  collectives:", {k: v for k, v in coll.items()
                                  if isinstance(v, dict) and v.get("count")})
@@ -364,40 +463,69 @@ def main(argv=None) -> int:
         print("[dryrun] torch finds no CUDA device; pass --device cpu",
               file=sys.stderr)
         return 2
+    archs = ASSIGNED if (args.all or args.arch is None) else [args.arch]
+    shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) \
+        else [args.shape]
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    combos = [(a, sh, mk) for a in archs for sh in shapes for mk in meshes]
+    if len(combos) > 1:
+        return _run_each(combos, args)
+
+    arch, shape, mk = combos[0]
     overrides = {"micro": args.micro, "kv_dtype": args.kv_dtype,
                  "remat_policy": args.remat_policy,
                  "no_seq_shard": args.no_seq_shard,
                  "no_moe_flat_shard": args.no_moe_flat_shard,
                  "serve_1d": args.serve_1d,
                  "quant_weights": args.quant_weights}
+    rec = dryrun_one(arch, shape, mk, overrides=overrides,
+                     device=args.device)
+    os.makedirs(args.out, exist_ok=True)
+    fname = f"{arch.replace('/', '_')}__{shape}__{mk}.json"
+    with open(os.path.join(args.out, fname), "w") as f:
+        json.dump(rec, f, indent=1)
+    print("\nAll dry-runs ran.")
+    return 0
 
-    archs = ASSIGNED if (args.all or args.arch is None) else [args.arch]
-    shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) \
-        else [args.shape]
-    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+
+def _run_each(combos, args) -> int:
+    """Each combination in a process of its own (this CLI with ``args``'
+    flags), as many at once as the host has cores, each on one CPU
+    thread; prints each one's output as it ends."""
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor, as_completed
+    flags = ["--out", args.out, "--device", args.device]
+    for name in ("micro", "kv_dtype", "remat_policy"):
+        if getattr(args, name) is not None:
+            flags += ["--" + name.replace("_", "-"), str(getattr(args, name))]
+    for name in ("no_seq_shard", "no_moe_flat_shard", "serve_1d",
+                 "quant_weights"):
+        if getattr(args, name):
+            flags.append("--" + name.replace("_", "-"))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+
+    def one(combo):
+        arch, shape, mk = combo
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mk, *flags],
+            capture_output=True, text=True, env=env)
 
     failures = []
-    for arch in archs:
-        for shape in shapes:
-            for mk in meshes:
-                try:
-                    rec = dryrun_one(arch, shape, mk, overrides=overrides,
-                                     device=args.device)
-                except Exception as e:      # noqa: BLE001 — report, go on
-                    failures.append((arch, shape, mk, repr(e)))
-                    print(f"[dryrun] FAIL {arch} {shape} {mk}: {e!r}",
-                          file=sys.stderr)
-                    continue
-                os.makedirs(args.out, exist_ok=True)
-                fname = f"{arch.replace('/', '_')}__{shape}__{mk}.json"
-                with open(os.path.join(args.out, fname), "w") as f:
-                    json.dump(rec, f, indent=1)
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        runs = {pool.submit(one, c): c for c in combos}
+        for done in as_completed(runs):
+            proc = done.result()
+            print(proc.stdout, end="", flush=True)
+            if proc.returncode != 0:
+                print(proc.stderr, end="", file=sys.stderr)
+                failures.append(runs[done])
     if failures:
         print(f"\n{len(failures)} FAILURES:", file=sys.stderr)
         for f in failures:
             print("  ", *f, file=sys.stderr)
         return 1
-    print("\nAll dry-runs ran.")
+    print(f"\nAll dry-runs ran ({len(combos)} records).")
     return 0
 
 

@@ -86,6 +86,67 @@ def analytic_flops(cfg: ModelConfig, shape: InputShape) -> float:
     return 3 * fwd if shape.kind == "train" else fwd
 
 
+def decode_flops_per_device(cfg: ModelConfig, shape: InputShape,
+                            data: int, tp: int) -> float:
+    """The matrix-product FLOPs of one decode step on one device of a
+    mesh with ``data`` batch shards and a ``tp``-way "model" axis:
+    ``flops_per_token``'s terms for the rows the device holds, each over
+    the shards that split it under the sharding rules (a dimension splits
+    where ``tp`` divides it; attention over the cache splits with the KV
+    heads, else with the cache's slots: the context-parallel layout).
+    Three terms differ from the reference's count, each as the port
+    computes it: the SSD's state update and the depthwise convs are
+    elementwise, which ``torch.utils.flop_counter`` does not count, so of
+    the SSD only its output product C.h (2 nh hd N, not 6) is kept and
+    the convs are left out; and the MoE's experts run over their
+    capacity slots (E x ``moe_capacity`` a row) where the reference
+    counts top_k a token."""
+    from repro_torch.models.layers import moe_capacity
+    if shape.kind != "decode":
+        raise ValueError(f"{shape.name}: a decode shape, not {shape.kind}")
+
+    def split(n: int) -> int:
+        return tp if n % tp == 0 and n > 1 else 1
+
+    B = shape.global_batch
+    rows = B // data if B % data == 0 else B
+    D, hd, H, KV = cfg.d_model, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    ctx = attn_cache_len(cfg, shape)
+    per_layer = 0.0
+    if cfg.has_attn:
+        per_layer += 2 * D * H * hd / split(H) + 4 * D * KV * hd / split(KV)
+        per_layer += 2 * H * hd * D / split(H)
+        over = split(KV) if split(KV) > 1 else split(ctx) \
+            if split(ctx) > 1 else split(H)
+        per_layer += 4 * ctx * H * hd / over
+    if cfg.has_ssm:
+        d_in, nh, G, N = (cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_ngroups,
+                          cfg.ssm_state)
+        ssd = split(nh) if split(nh) > 1 else split(hd_ssm(cfg))
+        per_layer += 4 * D * d_in / split(d_in) + 4 * D * G * N
+        per_layer += 2 * D * nh / split(nh)
+        per_layer += 2 * nh * hd_ssm(cfg) * N / ssd
+        per_layer += 2 * d_in * D / split(d_in)
+    if cfg.d_ff > 0:
+        gate = 3 if cfg.mlp_act == "silu" else 2
+        if cfg.is_moe:
+            slots = cfg.num_experts * moe_capacity(cfg, 1)
+            per_layer += 2 * gate * D * cfg.d_ff * slots / split(
+                cfg.num_experts)
+            per_layer += 2 * D * cfg.num_experts
+        else:
+            per_layer += 2 * gate * D * cfg.d_ff / split(cfg.d_ff)
+    total = cfg.num_layers * per_layer + 2 * D * cfg.vocab_size / split(
+        cfg.vocab_size)
+    if cfg.is_encdec:
+        Se = cfg.enc_seq
+        over = split(KV) if split(KV) > 1 else split(Se) \
+            if split(Se) > 1 else split(H)
+        total += cfg.num_layers * (4 * D * H * hd / split(H)
+                                   + 4 * Se * H * hd / over)
+    return rows * total
+
+
 def model_flops(cfg: ModelConfig, shape: InputShape) -> float:
     """The 6·N·D convention (active params for MoE)."""
     n = cfg.param_count(active_only=True)

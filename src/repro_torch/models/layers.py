@@ -124,18 +124,25 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor):
     return q, k, v
 
 
-def _scores_to_probs(scores: torch.Tensor, softcap: float) -> torch.Tensor:
+def _no_merge(t: torch.Tensor, op: str) -> torch.Tensor:
+    return t
+
+
+def _scores_to_probs(scores: torch.Tensor, softcap: float,
+                     merge=_no_merge) -> torch.Tensor:
+    """Softmax over the last axis; ``merge`` reduces its max and its sum
+    over the shards that hold the rest of the keys."""
     if softcap > 0:
         scores = softcap * torch.tanh(scores / softcap)
-    m = torch.amax(scores, dim=-1, keepdim=True)
+    m = merge(torch.amax(scores, dim=-1, keepdim=True), "max")
     e = torch.exp(scores - m)
-    return e / torch.sum(e, dim=-1, keepdim=True)
+    return e / merge(torch.sum(e, dim=-1, keepdim=True), "sum")
 
 
 def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
-              chunk: int = 512) -> torch.Tensor:
+              chunk: int = 512, merge=_no_merge) -> torch.Tensor:
     """GQA attention, f32 softmax.
 
     q (B, Sq, H, hd), k/v (B, Sk, KV, hd); q_pos (Sq,) or (B, Sq) and
@@ -152,7 +159,13 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     ``cfg.logit_softcap``.  DTensor q/k/v (on a device mesh) run on each
     shard's own rows and heads (``sharding.on_local_heads``): attention
     is head-local, so that is exact, and a flash launch takes the local
-    heads.  Otherwise queries run in chunks of at most
+    heads.  A decode step over a cache whose sequence is split (the
+    context-parallel layout) runs on each shard's own keys instead
+    (``sharding.on_sequence_shards``): every shard takes the softmax's
+    max, its sum of exponentials and the output over its keys, and
+    ``merge`` all-reduces each of the three (a log-sum-exp merge, at the
+    same rounding points), so the cache is never gathered.  Otherwise
+    queries run in chunks of at most
     ``chunk`` (the largest divisor of Sq not above it, or one block where
     that is 1), so the score matrix is rarely Sq x Sk at once.  The
     chunked products accumulate in f32 for a multi-token pass; a decode
@@ -166,6 +179,12 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     if cfg.attn_impl not in ("chunked", "flash"):
         raise NotImplementedError(f"{cfg.name}: attn_impl {cfg.attn_impl!r}")
     if SH.is_dtensor(q):
+        if Sq == 1 and SH.split_dims(k, 1):
+            return SH.on_sequence_shards(
+                lambda q, k, v, qp, kp, merge: attention(
+                    cfg, q, k, v, qp, kp, causal=causal, window=window,
+                    merge=merge),
+                q, k, v, q_pos, k_pos)
         return SH.on_local_heads(
             lambda q, k, v, qp, kp: attention(cfg, q, k, v, qp, kp,
                                               causal=causal, window=window,
@@ -192,8 +211,9 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
         if window is not None:
             mask = mask & (k_pos[:, None, :] > qp[:, :, None] - window)
         s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
-        pr = _scores_to_probs(s, cfg.logit_softcap).to(q.dtype)
-        o = torch.einsum("bckgs,bskh->bckgh", pr.to(torch.float32), vf)
+        pr = _scores_to_probs(s, cfg.logit_softcap, merge).to(q.dtype)
+        o = merge(torch.einsum("bckgs,bskh->bckgh", pr.to(torch.float32),
+                               vf), "sum")
         return o.to(acc).reshape(B, c, H, hd).to(q.dtype)
 
     if Sq <= chunk:
@@ -261,37 +281,26 @@ def moe_capacity(cfg: ModelConfig, S: int) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, ctx=None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (y (B, S, D), the Switch load-balance aux loss).
+def _moe_route(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):
+    """Top-k routing of x (B, S, D) on an f32 softmax: (probs (B, S, E),
+    the k weights renormalised over the k (B, S, K), their experts)."""
+    logits = einsum("bsd,de->bse", x.to(torch.float32),
+                    router.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, cfg.top_k, dim=-1)      # (B, S, K)
+    return probs, topw / torch.sum(topw, dim=-1, keepdim=True), topi
 
-    Top-k routing on an f32 softmax (weights renormalised over the k),
-    then per-row sort-based dispatch with ``moe_capacity`` slots an
-    expert: each row's (token, choice) pairs are stably sorted by expert,
-    the first ``cap`` of an expert keep their slot and the rest are
-    dropped.  The slot -> token map and the slot weights are scattered
-    into buffers with one spare slot (where the drops land, then cut
-    off); the activations are gathered once at the slots, the experts run
-    as one grouped product, and the combine is a weighted scatter-add
-    from the slots (the sentinel token S lands in a spare row).  On the
-    card that scatter-add's order is not fixed.  ``ctx`` constrains the
-    (B, E, cap, D) expert buffers ("moe_buf") before and after the
-    experts, where the reference does."""
-    c = ctx if ctx is not None else (lambda a, name: a)
+
+def _moe_dispatch(cfg: ModelConfig, x: torch.Tensor, topw: torch.Tensor,
+                  topi: torch.Tensor):
+    """Per-row sort-based dispatch with ``moe_capacity`` slots an expert:
+    (slot -> token map (B, E*cap), slot weights (B, E*cap) f32, the
+    expert buffers (B, E, cap, D) of x gathered at the slots).  A dropped
+    choice and an empty slot hold the sentinel token S and weight 0."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
     TK = S * K
     dev = x.device
-    logits = einsum("bsd,de->bse", x.to(torch.float32), p["router"].to(
-        torch.float32))
-    probs = torch.softmax(logits, dim=-1)
-    topw, topi = torch.topk(probs, K, dim=-1)              # (B, S, K)
-    topw = topw / torch.sum(topw, dim=-1, keepdim=True)
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean(torch.sum(F.one_hot(topi, E).to(torch.float32), dim=2),
-                    dim=(0, 1))
-    aux = E * torch.sum(me * ce) / K
-
     cap = moe_capacity(cfg, S)
     eflat, wflat = topi.reshape(B, TK), topw.reshape(B, TK)
     tflat = torch.arange(S, device=dev).repeat_interleave(K)[None].expand(
@@ -313,13 +322,82 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, ctx=None
     valid = (slot_token < S)[..., None]
     eb = torch.gather(x, 1, torch.clamp(slot_token, max=S - 1)[..., None]
                       .expand(B, E * cap, D))
-    eb = c(torch.where(valid, eb, 0).reshape(B, E, cap, D), "moe_buf")
+    return slot_token, slot_w, torch.where(valid, eb, 0).reshape(
+        B, E, cap, D)
+
+
+def _moe_combine(ob: torch.Tensor, slot_token: torch.Tensor,
+                 slot_w: torch.Tensor, S: int, first: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The weighted scatter-add of the expert outputs ob (B, E', cap, D),
+    experts ``first`` .. ``first + E' - 1``, back to their tokens: (B, S,
+    D) in ``dtype`` (the sentinel token S lands in a spare row)."""
+    B, El, cap, D = ob.shape
+    cols = slice(first * cap, (first + El) * cap)
+    st = slot_token[:, cols]
+    contrib = (ob.reshape(B, El * cap, D) * slot_w[:, cols, None]).to(dtype)
+    return torch.zeros((B, S + 1, D), dtype=dtype, device=ob.device
+                       ).scatter_add(1, st[..., None].expand(B, El * cap, D),
+                                     contrib)[:, :S]
+
+
+def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, ctx=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y (B, S, D), the Switch load-balance aux loss).
+
+    Top-k routing on an f32 softmax (weights renormalised over the k),
+    then per-row sort-based dispatch with ``moe_capacity`` slots an
+    expert: each row's (token, choice) pairs are stably sorted by expert,
+    the first ``cap`` of an expert keep their slot and the rest are
+    dropped.  The slot -> token map and the slot weights are scattered
+    into buffers with one spare slot (where the drops land, then cut
+    off); the activations are gathered once at the slots, the experts run
+    as one grouped product, and the combine is a weighted scatter-add
+    from the slots (the sentinel token S lands in a spare row).  On the
+    card that scatter-add's order is not fixed.  ``ctx`` constrains the
+    (B, E, cap, D) expert buffers ("moe_buf") before and after the
+    experts, where the reference does.
+
+    On a device mesh (DTensor x) routing and dispatch run on each shard's
+    own rows, whole (``sharding.on_local_rows``: a row's sort needs all
+    its tokens), the experts on their "model" shards, and each shard's
+    combine scatters its own experts' outputs, so the shards' partial
+    sums are reduced (``sharding.reduce_partial``); the aux loss takes
+    the means over every row."""
+    c = ctx if ctx is not None else (lambda a, name: a)
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    if SH.is_dtensor(x):
+        probs, choices, slot_token, slot_w, eb = SH.on_local_rows(
+            lambda xl, rl: _moe_local(cfg, xl, rl), 5, x, p["router"])
+    else:
+        probs, topw, topi = _moe_route(cfg, x, p["router"])
+        choices = torch.sum(F.one_hot(topi, E).to(torch.float32), dim=2)
+        slot_token, slot_w, eb = _moe_dispatch(cfg, x, topw, topi)
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(choices, dim=(0, 1))
+    aux = E * torch.sum(me * ce) / K
+
+    eb = c(eb, "moe_buf")
     h = einsum("becd,edf->becf", eb, p["wi"])
     g = einsum("becd,edf->becf", eb, p["wg"]) if cfg.mlp_act == "silu" \
         else None
-    ob = c(einsum("becf,efd->becd", _act(cfg, h, g), p["wo"]),
-           "moe_buf").reshape(B, E * cap, D)
-    contrib = (ob * slot_w[..., None]).to(x.dtype)
-    y = torch.zeros((B, S + 1, D), dtype=x.dtype, device=dev).scatter_add(
-        1, slot_token[..., None].expand(B, E * cap, D), contrib)[:, :S]
+    ob = c(einsum("becf,efd->becd", _act(cfg, h, g), p["wo"]), "moe_buf")
+    if SH.is_dtensor(ob):
+        y = SH.reduce_partial(SH.on_expert_shards(
+            lambda o, st, sw, first: _moe_combine(o, st, sw, S, first,
+                                                  x.dtype),
+            ob, slot_token, slot_w))
+    else:
+        y = _moe_combine(ob, slot_token, slot_w, S, 0, x.dtype)
     return y, aux.to(torch.float32)
+
+
+def _moe_local(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):
+    """Routing and dispatch of one shard's rows: (probs, the choices an
+    expert per token (B, S, E) f32, slot -> token map, slot weights,
+    expert buffers)."""
+    probs, topw, topi = _moe_route(cfg, x, router)
+    choices = torch.sum(F.one_hot(topi, cfg.num_experts).to(torch.float32),
+                        dim=2)
+    return (probs, choices) + _moe_dispatch(cfg, x, topw, topi)

@@ -265,8 +265,8 @@ def decoder_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
             ssd_state=cache["ssd"] if cache else None, decode=decode)
         if cache is not None:
             for name, t in conv.items():
-                cache["conv"][name].copy_(t)
-            cache["ssd"].copy_(state)
+                SH.copy_local(cache["conv"][name], t)
+            SH.copy_local(cache["ssd"], state)
         mix = y if mix is None else 0.5 * (mix + y)  # hymba: parallel heads
     if cfg.parallel_block and cfg.d_ff > 0:          # command-r
         return x + mix + L.mlp_apply(cfg, lp["mlp"], h), aux

@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.meta import Tree, leaves, tree_map
 
 
@@ -43,8 +44,10 @@ class AdamWConfig:
 
 
 def init(params: Tree) -> AdamWState:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    """Zero moments in f32, laid out as the parameters (DTensor
+    parameters give DTensor moments with their placements)."""
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     device = next(leaves(params))[1].device
     return AdamWState(count=torch.zeros((), dtype=torch.int32, device=device),
                       m=zeros, v=tree_map(torch.clone, zeros))
@@ -68,14 +71,23 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 @torch.no_grad()
 def apply(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree):
-    """Returns (new_params, new_state, metrics)."""
+    """Returns (new_params, new_state, metrics).  A DTensor leaf updates
+    on its local shards (its gradient brought to the parameter's layout
+    first, the moments laid out so by ``init``) and is wrapped back in
+    that layout: the same operations, without DTensor's dispatch for
+    each of them."""
     gnorm = global_norm(grads)
+    if is_dtensor(gnorm):
+        gnorm = gnorm.full_tensor()
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     count = state.count + 1
-    cf = count.to(torch.float32)
+    # a replicated DTensor count (the dry-run's) read as its plain value,
+    # so that the scalars below meet local shards as plain tensors
+    step_no = count.full_tensor() if is_dtensor(count) else count
+    cf = step_no.to(torch.float32)
     bc1 = 1.0 - cfg.b1 ** cf
     bc2 = 1.0 - cfg.b2 ** cf
-    lr = cfg.lr_at(count)
+    lr = cfg.lr_at(step_no)
 
     def upd(g, m, v, p):
         g = g.to(torch.float32) * scale
@@ -87,7 +99,19 @@ def apply(cfg: AdamWConfig, grads: Tree, state: AdamWState, params: Tree):
         newp = pf - lr * (step + decay)
         return newp.to(p.dtype), m, v
 
-    out = tree_map(upd, grads, state.m, state.v, params)
+    def upd_leaf(g, m, v, p):
+        if not is_dtensor(p):
+            return upd(g, m, v, p)
+        from torch.distributed.tensor import DTensor
+        mesh, pl = p.device_mesh, p.placements
+        if g.placements != pl:
+            g = g.redistribute(mesh, pl)
+        return tuple(DTensor.from_local(t, mesh, pl, run_check=False,
+                                        shape=p.shape, stride=p.stride())
+                     for t in upd(g.to_local(), m.to_local(), v.to_local(),
+                                  p.to_local()))
+
+    out = tree_map(upd_leaf, grads, state.m, state.v, params)
     pick = lambda i: tree_map(lambda t: t[i], out)  # noqa: E731
     metrics = {"grad_norm": gnorm, "lr": lr}
     return pick(0), AdamWState(count, pick(1), pick(2)), metrics

@@ -10,8 +10,12 @@ feedback loop on add the ``surveiledge_no_update`` row
 and scenarios with a track query and predictive hand-off add
 ``surveiledge_no_handoff`` (hand-off off: the ID-switch ablation).
 
-``--json-out DIR`` writes one ``<scenario>-confidence.json`` per
-scenario, which ``benchmarks/report_gate.py`` diffs against the committed
+Every preset runs on either detection stream, as the reference's
+``--frontend`` says: the model-free confidence stream (the default, also
+for ``pixel_city``) or ``pixel``, the rendered frames; ``--scenario all``
+takes each preset's own from ``SMOKE_OVERRIDES`` (``pixel_city`` on the
+pixel path).  ``--json-out DIR`` writes one
+``<scenario>-<frontend>.json`` per scenario, which ``benchmarks/report_gate.py`` diffs against the committed
 ``reports/`` baselines (give it a baseline directory holding only the
 scenarios run: a missing scenario is a breach).  The run fails
 on NaN metrics, a pipeline that answered nothing, or an internally
@@ -23,7 +27,7 @@ inconsistent row.
   PYTHONPATH=src python -m repro_torch.run_scenarios --scenario metropolis \\
       --cameras 1024 --duration 12 --device cpu
   PYTHONPATH=src python -m repro_torch.run_scenarios --scenario pixel_city \\
-      --duration 10 --device cpu
+      --frontend pixel --duration 10 --device cpu
 """
 from __future__ import annotations
 
@@ -56,16 +60,13 @@ SMOKE_OVERRIDES = {
     "drifting_city": dict(cameras=8, duration=60.0),
     "multi_query_city": dict(cameras=8, duration=60.0),
     "query_churn": dict(cameras=8, duration=60.0),
-    "pixel_city": dict(duration=10.0),
+    "pixel_city": dict(frontend="pixel", duration=10.0),
     "rush_hour": dict(cameras=4, duration=40.0),
     # track presets pin their own camera/edge geometry (the CLI default of
     # 6 cameras would break the alternating-edge chain the hand-off rides)
     "vehicle_pursuit": dict(cameras=12, duration=60.0),
     "crowd_flow": dict(cameras=8, duration=45.0),
 }
-#: presets that exist to exercise the pixel path run on it; the rest on
-#: the model-free confidence stream
-PIXEL_SCENARIOS = ("pixel_city",)
 
 
 def check_consistency(name: str, scheme: str, summary: dict) -> None:
@@ -139,25 +140,28 @@ def variants(sc):
 
 def run_scenario(name: str, cameras: int, duration: float, seed: int,
                  device: str, json_out: str = None,
-                 frontend: PixelFrontend = None) -> dict:
+                 frontend: PixelFrontend = None,
+                 frontend_name: str = "confidence") -> dict:
     """Simulate one scenario under every scheme (+ ablation rows); print
     the table, optionally write its JSON report, and return the report.
 
-    A ``PIXEL_SCENARIOS`` preset runs on ``frontend``, by default
-    ``PixelFrontend(seed=seed, device=device)``; pass one built with other
-    weights (``params=``) to score with them.  The frontend caches its
-    stream, so the frames are rendered and scored once for all rows."""
+    Any preset runs on either detection stream (``frontend_name``): the
+    model-free confidence stream, or ``"pixel"``, the rendered frames
+    through ``frontend``, by default ``PixelFrontend(seed=seed,
+    device=device)``; passing a ``frontend`` (one built with other
+    weights, ``params=``, to score with them) means the pixel stream.
+    The frontend caches its stream, so the frames are rendered and scored
+    once for all rows."""
+    if frontend_name not in ("confidence", "pixel"):
+        raise ValueError(f"frontend {frontend_name!r}: expected "
+                         f"'confidence' or 'pixel'")
     sc = SCENARIOS[name](num_cameras=cameras, duration_s=duration, seed=seed)
-    if name in PIXEL_SCENARIOS:
+    if frontend is not None or frontend_name == "pixel":
         frontend_name = "pixel"
         if frontend is None:
             frontend = PixelFrontend(seed=seed, device=device)
         stream = frontend.stream(sc)
-    elif frontend is not None:
-        raise ValueError(f"{name} runs on the confidence stream; frontend= "
-                         f"is for {PIXEL_SCENARIOS}")
     else:
-        frontend_name = "confidence"
         stream = synthetic_confidence_stream(sc)
     print(f"\n== {name} [{frontend_name}, {device}] — {len(stream)} "
           f"detections, "
@@ -219,6 +223,11 @@ def main(argv=None):
                     help="run one scenario, or 'all' for every preset with "
                          "its smoke overrides (default: the small-fleet "
                          "sweep, city_scale left out)")
+    ap.add_argument("--frontend", choices=("confidence", "pixel"),
+                    default="confidence",
+                    help="detection stream: model-free confidence synthesis "
+                         "(default) or the rendered-frames pixel path; "
+                         "'--scenario all' takes each preset's own")
     ap.add_argument("--json-out", metavar="DIR", default=None,
                     help="write per-scenario JSON reports to DIR and fail "
                          "on NaN/empty/inconsistent metrics")
@@ -235,13 +244,15 @@ def main(argv=None):
             ov = SMOKE_OVERRIDES.get(name, {})
             run_scenario(name, ov.get("cameras", args.cameras),
                          ov.get("duration", args.duration), args.seed,
-                         args.device, args.json_out)
+                         args.device, args.json_out,
+                         frontend_name=ov.get("frontend", args.frontend))
         return
     names = [args.scenario] if args.scenario else \
         [n for n in sorted(PORTED_SCENARIOS) if n != "city_scale"]
     for name in names:
         run_scenario(name, args.cameras, args.duration, args.seed,
-                     args.device, args.json_out)
+                     args.device, args.json_out,
+                     frontend_name=args.frontend)
 
 
 if __name__ == "__main__":

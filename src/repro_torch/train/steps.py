@@ -18,9 +18,10 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import (is_dtensor, like_rows, scope,
-                                             split_batch, splits_last,
-                                             take_last)
+from repro_torch.distributed.sharding import (is_dtensor, like_rows,
+                                             on_positions, scope,
+                                             split_batch, split_dims,
+                                             splits_last, take_last)
 from repro_torch.models import meta as M
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -35,12 +36,18 @@ class TrainState(NamedTuple):
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token xent: logits (B, S, V), cast to f32, labels (B, S)
-    integer."""
+    integer.  DTensor logits may hold a prefix of positions before the
+    labels' (internvl2's image prefix, which ``make_loss_fn`` leaves on
+    where the sequence is split); it is left out."""
     lf = logits.to(torch.float32)
     idx = labels.long()[..., None]
+    prefix = lf.shape[1] - labels.shape[1]
+    if prefix and not split_dims(lf, 1):
+        lf = lf[:, prefix:]
     if not splits_last(lf):
-        lse = torch.logsumexp(lf, dim=-1)
-        return torch.mean(lse - torch.gather(lf, -1, idx)[..., 0])
+        if split_dims(lf, 1):    # a split sequence: each shard's positions
+            return on_positions(_xent_terms, lf, idx) / labels.numel()
+        return torch.mean(_xent_terms(lf, idx))
     # vocabulary-sharded DTensor logits: logsumexp as its max-shifted sum,
     # whose max and sum reduce (B, S) partials across the shards (the max
     # a constant for autograd, as in logsumexp's own backward), where
@@ -55,6 +62,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(lse - like_rows(take_last(lf, idx), lf))
 
 
+def _xent_terms(lf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-position xent of f32 logits (B, S, V) at labels (B, S, 1)."""
+    return torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, idx)[..., 0]
+
+
 def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
                  remat_policy: Optional[str] = None, ctx=None) -> Callable:
     """(params, batch) -> (loss, {"lm_loss", "moe_aux"}).  ``batch``
@@ -67,7 +79,10 @@ def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
                            img_embeds=batch.get("img_embeds"),
                            audio_frames=batch.get("audio_frames"),
                            remat=remat, remat_policy=remat_policy, ctx=ctx)
-        if cfg.num_img_tokens > 0:          # loss only over text positions
+        # loss only over text positions; a split sequence keeps its
+        # prefix (cut, it would move every shard's rows: cross_entropy
+        # leaves it out)
+        if cfg.num_img_tokens > 0 and not split_dims(h, 1):
             h = h[:, cfg.num_img_tokens:]
         loss = cross_entropy(T.lm_logits(cfg, params, h, ctx=ctx),
                              batch["labels"])
@@ -137,8 +152,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
                                      f"{microbatches} microbatches")
             micro = {k: split_batch(v, microbatches)
                      for k, v in batch.items()}
-            grads = M.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            # f32 accumulators laid out as the parameters
+            grads = M.tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             aux = torch.zeros_like(loss)

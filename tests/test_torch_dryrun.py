@@ -87,6 +87,22 @@ def test_dryrun_cli_perf_knobs(tmp_path):
     assert abs(rec["cost"]["flops"] / per_device - 1) < 1e-3
 
 
+def test_dryrun_cli_runs_a_process_a_combination(tmp_path):
+    """More than one combination (here ``--mesh both``): a process each,
+    the parsed override flags passed on to every one."""
+    r = _run(["--arch", "qwen1.5-0.5b", "--shape", "long_500k",
+              "--mesh", "both", "--kv-dtype", "int8", "--out",
+              str(tmp_path)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "All dry-runs ran (2 records)." in r.stdout
+    assert r.stdout.count("[dryrun] qwen1.5-0.5b") == 2
+    for mesh, chips in (("single", 256), ("multi", 512)):
+        rec = json.load(open(
+            tmp_path / f"qwen1.5-0.5b__long_500k__{mesh}.json"))
+        assert rec["chips"] == chips and rec["mesh"] == mesh
+        assert rec["overrides"] == {"kv_dtype": "int8"}
+
+
 def test_dryrun_needs_the_card_unless_told_otherwise():
     if D.torch.cuda.is_available():
         pytest.skip("the refusal only happens on a host without CUDA")

@@ -4,7 +4,9 @@ on a 4-process ``gloo`` group.
 Four processes (``tests/torch_mesh_cases.py``) on a ("data"=2,
 "model"=2) mesh take two train steps of reduced qwen1.5-0.5b (and on a
 (1, 4) mesh of reduced chatglm3-6b, whose 2 KV heads the 4 query-head
-shards split) with DTensor parameters and AdamW state placed by the
+shards split in prefill, and whose context-parallel cache each decode
+step reads with the shards' log-sum-exp merge) with DTensor parameters
+and AdamW state placed by the
 train rules, ``ActCtx`` on and each rank's batch block made its part of
 the global batch by ``global_shard``; then one prefill (flash attention,
 each shard on its own heads) and four greedy decode steps under the
@@ -20,8 +22,6 @@ over a one-rank group, bit for bit the plain train step;
 --mesh host`` printing the losses of the run without a mesh; and
 ``launch/multihost.py``'s bring-up from explicit flags.
 """
-import multiprocessing
-import socket
 
 import numpy as np
 import pytest
@@ -37,48 +37,13 @@ from repro_torch.models import meta as M
 from repro_torch.optim import adamw
 from repro_torch.train import steps as ST
 
-MESH_RTOL = 1e-5
-LOGIT_ATOL = 1e-4
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+_free_port = MC._free_port
 
 
 @pytest.mark.parametrize("arch,shape", [("qwen1.5-0.5b", (2, 2)),
                                         ("chatglm3-6b", (1, 4))])
 def test_four_process_mesh_matches_one_process(arch, shape):
-    ctx = multiprocessing.get_context("spawn")
-    queue = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=MC.worker,
-                         args=(r, 4, port, arch, shape, queue))
-             for r in range(4)]
-    for p in procs:
-        p.start()
-    try:
-        out = queue.get(timeout=240)
-    finally:
-        for p in procs:
-            p.join(timeout=60)
-            if p.is_alive():
-                p.kill()
-    assert out[0] != "failed", f"rank {out[1]}:\n{out[2]}"
-    metrics, final, logits, tokens = out
-    assert all(not p.is_alive() and p.exitcode == 0 for p in procs)
-    want_m, want_final, want_logits, want_tokens = MC.plain_run(
-        arch, hosts=shape[0])
-    for (loss, gnorm), (wl, wg) in zip(metrics, want_m):
-        assert abs(loss - wl) <= MESH_RTOL * abs(wl), (loss, wl)
-        assert abs(gnorm - wg) <= MESH_RTOL * abs(wg), (gnorm, wg)
-    assert set(final) == set(want_final)
-    for path, w in want_final.items():
-        gap = float(np.abs(final[path] - w).max())
-        assert gap <= 2 * MC.LR * MC.STEPS, (path, gap)
-    assert float(np.abs(logits - want_logits).max()) <= LOGIT_ATOL
-    np.testing.assert_array_equal(tokens, want_tokens)
+    MC.check(arch, shape)
 
 
 @pytest.fixture

@@ -106,8 +106,43 @@ def test_pixel_city_report_passes_gate(ref_run, tmp_path):
     assert set(fresh["schemes"]) == set(base["schemes"])
     for row, want in base["schemes"].items():
         assert set(fresh["schemes"][row]) == set(want)
-    with pytest.raises(ValueError, match="confidence stream"):
-        RS.run_scenario("single_edge", 2, 2.0, 0, "cpu", frontend=fe)
+    with pytest.raises(ValueError, match="frontend 'pixels'"):
+        RS.run_scenario("single_edge", 2, 2.0, 0, "cpu",
+                        frontend_name="pixels")
+
+
+def test_any_preset_runs_on_the_pixel_frontend(ref_run, capsys):
+    """``--frontend pixel`` on a confidence preset, as the reference's
+    runner allows (any preset on either stream, confidence by default,
+    ``--scenario all`` taking each preset's own): ``single_edge`` with 2
+    cameras for 5 s gives, row by row, the integer fields of the
+    reference's ``run_query(..., frontend=PixelFrontend(seed=0))``
+    summary, scored with the reference's weights."""
+    from repro.system import single_edge as ref_single_edge
+    params = ref_run[2]
+    doc = RS.run_scenario("single_edge", 2, 5.0, 0, "cpu",
+                          frontend=PixelFrontend(params=params,
+                                                 device="cpu"))
+    assert doc["frontend"] == "pixel" and doc["n_detections"] > 0
+    ref_fe = RefPixelFrontend(seed=0)
+    ref_sc = ref_single_edge(num_cameras=2, duration_s=5.0, seed=0)
+    assert len(ref_fe.stream(ref_sc)) == doc["n_detections"]
+    ints = 0
+    for row, got in doc["schemes"].items():
+        want = ref_run_query(ref_sc.with_scheme(row),
+                             frontend=ref_fe).summary()
+        for k, v in want.items():
+            if isinstance(v, int) and not isinstance(v, bool):
+                assert got[k] == v, (row, k, got[k], v)
+                ints += 1
+    assert ints > 0
+    RS.main(["--scenario", "single_edge", "--cameras", "2", "--duration",
+             "1", "--frontend", "pixel", "--device", "cpu"])
+    RS.main(["--scenario", "pixel_city", "--duration", "1", "--device",
+             "cpu"])
+    out = capsys.readouterr().out
+    assert "== single_edge [pixel, cpu]" in out
+    assert "== pixel_city [confidence, cpu]" in out
 
 
 # --- truth matching -----------------------------------------------------------
