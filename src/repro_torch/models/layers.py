@@ -19,11 +19,13 @@ reference's) raises ``NotImplementedError`` where it is read.
 from __future__ import annotations
 
 import math
+from time import perf_counter
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops as KOPS
 from repro_torch.models.config import ModelConfig
@@ -363,7 +365,22 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, ctx=None
     its tokens), the experts on their "model" shards, and each shard's
     combine scatters its own experts' outputs, so the shards' partial
     sums are reduced (``sharding.reduce_partial``); the aux loss takes
-    the means over every row."""
+    the means over every row.
+
+    The call is the recorder's ``moe`` span; a decode step's (one token
+    a row) counts the expert rows its grouped product runs
+    (``moe.slots``: B*E*cap, the shape of the expert buffers) into the
+    span open around it."""
+    t0 = perf_counter()
+    y, aux, rows = _moe_apply(cfg, p, x, ctx)
+    tracing.leaf("moe", t0)
+    if x.shape[1] == 1:
+        tracing.count("moe.slots", rows)
+    return y, aux
+
+
+def _moe_apply(cfg: ModelConfig, p, x: torch.Tensor, ctx
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     c = ctx if ctx is not None else (lambda a, name: a)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.top_k
@@ -390,7 +407,7 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, ctx=None
             ob, slot_token, slot_w))
     else:
         y = _moe_combine(ob, slot_token, slot_w, S, 0, x.dtype)
-    return y, aux.to(torch.float32)
+    return y, aux.to(torch.float32), eb.shape[0] * eb.shape[1] * eb.shape[2]
 
 
 def _moe_local(cfg: ModelConfig, x: torch.Tensor, router: torch.Tensor):

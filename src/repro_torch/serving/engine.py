@@ -41,6 +41,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import cascade as C
 from repro_torch.core.speculative import greedy
 from repro_torch.core.thresholds import ThresholdState
@@ -101,18 +102,22 @@ class DecodeEngine:
         """Prefill the request into a free slot; False if the batch is full."""
         for i, slot in enumerate(self.slots):
             if slot.free:
-                prompt = torch.as_tensor(np.asarray(req.tokens),
-                                         dtype=torch.long,
-                                         device=self.device)[None]
-                logits, cache1 = T.prefill(self.cfg, self.params, prompt,
-                                           cache_len=self.cache_len,
-                                           window=self.window)
-                first = int(greedy(logits[0]))
-                self._write_slot_cache(i, cache1)
-                self.tokens[i] = first
-                self.slots[i] = SlotState(rid=req.rid,
-                                          remaining=req.max_new - 1,
-                                          generated=[first])
+                with tracing.span("admit", req.rid):
+                    with tracing.span("admit.prefill"):
+                        prompt = torch.as_tensor(np.asarray(req.tokens),
+                                                 dtype=torch.long,
+                                                 device=self.device)[None]
+                        logits, cache1 = T.prefill(
+                            self.cfg, self.params, prompt,
+                            cache_len=self.cache_len, window=self.window)
+                    with tracing.span("admit.first_token"):
+                        first = int(greedy(logits[0]))
+                    with tracing.span("admit.slot_copy"):
+                        self._write_slot_cache(i, cache1)
+                        self.tokens[i] = first
+                    self.slots[i] = SlotState(rid=req.rid,
+                                              remaining=req.max_new - 1,
+                                              generated=[first])
                 return True
         return False
 
@@ -142,20 +147,27 @@ class DecodeEngine:
         """One decode tick for every active slot.  Returns finished
         (rid, generated_tokens) pairs."""
         self.ticks += 1
-        logits, self.cache = T.decode_step(self.cfg, self.params, self.cache,
-                                           self.tokens, window=self.window)
-        self.tokens = greedy(logits)
-        nxt = self.tokens.tolist()
-        done = []
-        for i, slot in enumerate(self.slots):
-            if slot.free:
-                continue
-            slot.generated.append(nxt[i])
-            slot.remaining -= 1
-            if slot.remaining <= 0:
-                done.append((slot.rid, list(slot.generated)))
-                self.slots[i] = SlotState()
-                self._release_slot(i)
+        with tracing.span("tick"):
+            with tracing.span("tick.launch"):
+                logits, self.cache = T.decode_step(
+                    self.cfg, self.params, self.cache, self.tokens,
+                    window=self.window)
+                self.tokens = greedy(logits)
+            with tracing.span("tick.readback"):
+                nxt = self.tokens.tolist()
+            with tracing.span("tick.bookkeeping"):
+                done, rows = [], 0
+                for i, slot in enumerate(self.slots):
+                    if slot.free:
+                        continue
+                    rows += 1
+                    slot.generated.append(nxt[i])
+                    slot.remaining -= 1
+                    if slot.remaining <= 0:
+                        done.append((slot.rid, list(slot.generated)))
+                        self.slots[i] = SlotState()
+                        self._release_slot(i)
+            tracing.count("tick.active", rows)
         return done
 
     @property
@@ -186,14 +198,19 @@ class CascadeServer:
     @torch.no_grad()
     def edge_conf(self, tokens) -> float:
         """The edge CQ model's P(query object) for one (S,) prompt."""
-        t = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                            device=self.device)[None]
-        h, _ = T.forward(self.edge_cfg, self.edge_params, t)
-        return float(C.confidence_from_logits(
-            T.classify(self.edge_cfg, self.edge_params, h))[0])
+        with tracing.span("edge.launch"):
+            t = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                                device=self.device)[None]
+            h, _ = T.forward(self.edge_cfg, self.edge_params, t)
+            conf = C.confidence_from_logits(
+                T.classify(self.edge_cfg, self.edge_params, h))[0]
+        with tracing.span("edge.readback"):
+            return float(conf)
 
     def submit(self, req: Request) -> None:
-        route = self.th.triage(self.edge_conf(req.tokens))
+        with tracing.span("edge", req.rid):
+            conf = self.edge_conf(req.tokens)
+        route = self.th.triage(conf)
         if route == "accept":
             req.route, req.output = "edge_accept", np.asarray([1])
             self.results[req.rid] = req
